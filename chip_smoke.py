@@ -1,0 +1,520 @@
+#!/usr/bin/env python3
+"""On-card check of the PyTorch/CUDA port: builds its kernels, holds each
+against its plain version, and serves Llama-3-8B through the main path.
+
+Run from the repository root on a machine with one CUDA card:
+
+    python3 chip_smoke.py
+
+Phases, one JSON line each; any failure ends the run with a non-zero exit:
+  env      card name and power limit, torch/CUDA versions, kernel build time
+  kernels  every kernel against its plain version at the Llama-3-8B serving
+           shapes and at small shapes (window, softcap, ungated FFN, every
+           activation, zero scales), in f32 and bf16; the bitwise T-wide and
+           nb-bucket checks of paged attention; kernel, plain-version and
+           one-library-call times
+  serve    Llama-3-8B at full width (random bf16 weights from the seed)
+           through repro_torch's PagedEngine with block-sparse GLASS decode
+           and the paged-attention kernel; every kernel's launch count from
+           that run; the same requests again through the plain path
+           (masked GLASS, gather attention) to hold the first decode tick's
+           logits to a bf16 tolerance
+Then the kernel summary line, the card's name and power limit as
+nvidia-smi prints them, and the result line.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent
+SEED = 0
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense bf16 tensor / f32 vector
+# paged attention, f32: |got - ref| <= 2e-5.  bf16, elementwise:
+# |got - ref| <= 8e-3 * (|ref| + A), A the same attention over |v| (the sum
+# of p_i |v_i| / l).  The kernel rounds each probability to bf16 against a
+# running max, the plain version against the final max (up to 2^-8 of the
+# term each), and each rounds its output once (up to 2^-8 of the value), so
+# 2^-7 * (|ref| + A) bounds a correct kernel; 8e-3 leaves 2% for f32
+# reordering.  tests/test_torch_kernels.py holds the JAX kernel (whose
+# online softmax rounds as this kernel does) within it, and shows that one
+# wrong 16-key block of a 543-key row exceeds it.
+PA_F32_ATOL, PA_BF16_RTOL = 2e-5, 8e-3
+FFN_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}  # GLASS FFN, relative to max |ref|
+# serve: ||a - b|| / ||b|| of each request's first-decode logits, kernel path
+# against the plain path, bf16 over 32 layers.  The two paths round
+# attention differently (the kernel rounds unnormalized probabilities to
+# bf16, the gather path normalized ones, as the JAX package's two paths
+# do).  Correct runs read 0.027-0.035 for every request (NVIDIA H100 80GB
+# HBM3, 700 W); unrelated logits read about 1.4.
+LOGITS_REL_TOL = {"median": 0.05, "max": 0.1}
+
+KERNELS = {
+    "paged_attention": dict(
+        source="src/repro_torch/csrc/paged_attention.cu",
+        replaces="src/repro/kernels/paged_attention.py:125",
+    ),
+    "glass_ffn": dict(
+        source="src/repro_torch/csrc/glass_ffn.cu",
+        replaces="src/repro/kernels/glass_ffn.py:82",
+    ),
+    "glass_ffn_rowwise": dict(
+        source="src/repro_torch/csrc/glass_ffn.cu",
+        replaces="src/repro/kernels/glass_ffn.py:161",
+    ),
+}
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def check(cond: bool, what: str) -> None:
+    if not cond:
+        raise RuntimeError(f"chip_smoke check failed: {what}")
+
+
+def nvidia_smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+class Timer:
+    """Milliseconds per call from CUDA events over many calls.  ``cold``
+    flushes the 50 MB L2 between calls (and subtracts the flush's own
+    time), as a decode tick finds a layer's KV after 31 other layers."""
+
+    def __init__(self, device):
+        self.flush_buf = torch.empty(256 * 2**20, dtype=torch.uint8, device=device)
+
+    def _run(self, fn, iters, flush):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            if flush:
+                self.flush_buf.zero_()
+            if fn is not None:
+                fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / iters
+
+    def ms(self, fn, iters=50, cold=False) -> float:
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        t = self._run(fn, iters, cold)
+        if cold:
+            t -= self._run(None, iters, True)
+        return t
+
+
+# -- kernels ------------------------------------------------------------------
+
+
+def _paged_err(got, ref, args, window, softcap=None):
+    """(max |got - ref|, its largest ratio to the elementwise limit); the
+    check passes when the ratio is at most 1."""
+    from repro_torch.kernels.ref import paged_attention_ref
+
+    err = (got.float() - ref.float()).abs()
+    if got.dtype == torch.float32:
+        lim = torch.full_like(err, PA_F32_ATOL)
+    else:
+        q, ck, cv, tab, clen = args
+        a = paged_attention_ref(q.float(), ck.float(), cv.float().abs(), tab, clen, window,
+                                softcap=softcap)
+        lim = PA_BF16_RTOL * (ref.float().abs() + a)
+    return err.max().item(), (err / lim).max().item()
+
+
+def _pool_case(gen, dev, dtype, *, B, T, K, G, hd, bs, num_blocks, lens, nb):
+    """A pool full of random rows (stale rows past each frontier included),
+    disjoint random block lists per row, and queries at ``lens``."""
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
+    cache_k, cache_v = randn(num_blocks, bs, K, hd), randn(num_blocks, bs, K, hd)
+    perm = torch.randperm(num_blocks - 1, generator=gen, device=dev) + 1
+    table = torch.zeros(B, nb, dtype=torch.int32, device=dev)
+    off = 0
+    for b, n in enumerate(lens):
+        if n == 0:  # an inactive decode row: trash block 0, as the engine feeds it
+            continue
+        need = -(-(n + T) // bs)
+        table[b, :need] = perm[off : off + need].to(torch.int32)
+        off += need
+    cache_len = torch.as_tensor(lens, dtype=torch.int32, device=dev)
+    return randn(B, T, K, G, hd), cache_k, cache_v, table, cache_len
+
+
+def _paged_bound(q, table, cache_len, bs, dtype):
+    """Least time for the call: live KV blocks + q + out over the HBM rate,
+    or QK and PV flops over the peak rate, whichever is larger."""
+    B, T, K, G, hd = q.shape
+    el = q.element_size()
+    blocks = sum(min((int(cache_len[b]) + T - 1) // bs + 1, table.shape[1]) for b in range(B))
+    nbytes = blocks * K * 2 * bs * hd * el + 2 * q.numel() * el + table.numel() * 4
+    keys = sum(int(cache_len[b]) * T + T * (T + 1) // 2 for b in range(B))
+    flops = 4 * keys * K * G * hd
+    return _bound(nbytes, flops, dtype)
+
+
+def _bound(nbytes, flops, dtype):
+    tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[dtype] * 1e3
+    return max(tb, tf), ("bytes" if tb >= tf else "operations")
+
+
+def _ffn_bound(x, block_idx, block_scale, bs, rowwise):
+    d = x.shape[1]
+    el = x.element_size()
+    idx, sc = block_idx.reshape(-1, block_idx.shape[-1]), block_scale.reshape(-1, block_idx.shape[-1])
+    live = sc != 0
+    tiles = int(torch.unique(idx[live]).numel())
+    row_tiles = int(live.sum()) * (1 if rowwise else x.shape[0])
+    nbytes = tiles * 3 * d * bs * el + x.numel() * el + x.shape[0] * d * 4
+    flops = row_tiles * 6 * d * bs
+    return _bound(nbytes, flops, x.dtype)
+
+
+def kernels_phase(timer):
+    from repro_torch.kernels.glass_ffn import glass_ffn_cuda, glass_ffn_rowwise_cuda
+    from repro_torch.kernels.paged_attention import paged_attention_cuda
+    from repro_torch.kernels.ref import glass_ffn_ref, glass_ffn_rowwise_ref, paged_attention_ref
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    summary = {name: {} for name in KERNELS}
+    report = {"phase": "kernels", "checks": []}
+
+    # -- paged attention: small shapes (window, softcap, trash rows, T > 1)
+    for dtype in (torch.float32, torch.bfloat16):
+        for window, softcap in ((2**30, None), (6, None), (2**30, 30.0), (3, 12.0)):
+            args = _pool_case(gen, dev, dtype, B=3, T=5, K=2, G=3, hd=64, bs=8, num_blocks=12,
+                              lens=[0, 9, 17], nb=4)
+            got = paged_attention_cuda(*args, window, softcap=softcap)
+            ref = paged_attention_ref(*args, window, softcap=softcap)
+            err, over = _paged_err(got, ref, args, window, softcap)
+            report["checks"].append(dict(kernel="paged_attention", dtype=str(dtype), shape="small",
+                                         window=window, softcap=softcap, max_abs_err=err,
+                                         err_over_limit=over))
+            check(bool(torch.isfinite(got).all()) and over <= 1.0,
+                  f"paged_attention small {dtype} window={window} softcap={softcap}: err {err}, "
+                  f"{over} of the limit")
+
+    # -- paged attention at the serving shapes: decode (B=8, T=1) and one
+    # prefill chunk (B=1, T=128), Llama-3-8B heads, block 16
+    shapes = {
+        "decode": dict(B=8, T=1, lens=[543, 511, 383, 255, 199, 127, 0, 0], nb=36),
+        "prefill": dict(B=1, T=128, lens=[256], nb=32),
+    }
+    for dtype in (torch.float32, torch.bfloat16):
+        for label, sh in shapes.items():
+            args = _pool_case(gen, dev, dtype, B=sh["B"], T=sh["T"], K=8, G=4, hd=128, bs=16,
+                              num_blocks=289, lens=sh["lens"], nb=sh["nb"])
+            got = paged_attention_cuda(*args, 2**30)
+            ref = paged_attention_ref(*args, 2**30)
+            err, over = _paged_err(got, ref, args, 2**30)
+            check(bool(torch.isfinite(got).all()) and over <= 1.0,
+                  f"paged_attention {label} {dtype}: err {err}, {over} of the limit")
+            row = dict(kernel="paged_attention", dtype=str(dtype), shape=label, max_abs_err=err,
+                       err_over_limit=over)
+            if dtype is torch.bfloat16:
+                q, ck, cv, tab, clen = args
+                row["ms"] = timer.ms(lambda: paged_attention_cuda(*args, 2**30), cold=True)
+                row["plain_ms"] = timer.ms(lambda: paged_attention_ref(*args, 2**30), iters=5)
+                row["bound_ms"], row["bound_by"] = _paged_bound(q, tab, clen, 16, dtype)
+                row["library_ms"] = _sdpa_ms(timer, *args)
+                if label == "decode":
+                    summary["paged_attention"] = dict(
+                        max_abs_err=err, **{k: row[k] for k in
+                                            ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
+                if label == "prefill":  # bitwise: T-wide call == T one-query calls
+                    singles = torch.cat([
+                        paged_attention_cuda(q[:, t : t + 1].contiguous(), ck, cv, tab, clen + t, 2**30)
+                        for t in range(q.shape[1])
+                    ], dim=1)
+                    row["t_wide_bitwise"] = bool(torch.equal(singles, got))
+                    check(row["t_wide_bitwise"], "paged_attention T-wide != T one-query calls")
+                else:  # bitwise: a wider nb bucket of trash entries changes nothing
+                    wide = torch.zeros(tab.shape[0], 64, dtype=torch.int32, device=dev)
+                    wide[:, : tab.shape[1]] = tab
+                    row["bucket_bitwise"] = bool(torch.equal(
+                        paged_attention_cuda(q, ck, cv, wide, clen, 2**30), got))
+                    check(row["bucket_bitwise"], "paged_attention depends on the nb bucket")
+            report["checks"].append(row)
+
+    # -- GLASS FFN: small shapes (every activation, ungated, zero scales, > 8 rows)
+    def ffn_case(dtype, B, d, m, bs, nbk, gated, rowwise, zero_scales):
+        s = d ** -0.5
+        x = torch.randn(B, d, generator=gen, device=dev).to(dtype)
+        wu = (torch.randn(d, m, generator=gen, device=dev) * s).to(dtype)
+        wg = (torch.randn(d, m, generator=gen, device=dev) * s).to(dtype) if gated else None
+        wd = (torch.randn(m, d, generator=gen, device=dev) * (m ** -0.5)).to(dtype)
+        rows = B if rowwise else 1
+        idx = torch.stack([torch.sort(torch.randperm(m // bs, generator=gen, device=dev)[:nbk]).values
+                           for _ in range(rows)]).to(torch.int32)
+        sc = torch.ones(rows, nbk, device=dev)
+        if zero_scales:
+            sc[:, ::3] = 0.0
+        if not rowwise:
+            idx, sc = idx[0], sc[0]
+        return x, wu, wd, idx, wg, sc
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for act in ("silu", "gelu", "relu", "relu2"):
+            for gated, rowwise, zero_scales, B in ((True, False, False, 9), (False, True, True, 3),
+                                                   (True, True, False, 5), (False, False, True, 2)):
+                x, wu, wd, idx, wg, sc = ffn_case(dtype, B, 256, 1024, 128, 4, gated, rowwise,
+                                                  zero_scales)
+                kern = glass_ffn_rowwise_cuda if rowwise else glass_ffn_cuda
+                ref_fn = glass_ffn_rowwise_ref if rowwise else glass_ffn_ref
+                for scale in (sc, None):
+                    got = kern(x, wu, wd, idx, wg, block_scale=scale, act=act)
+                    ref = ref_fn(x, wu, wd, idx, wg, block_scale=scale, act=act)
+                    err = (got - ref).abs().max().item()
+                    lim = FFN_TOL[dtype] * max(1.0, ref.abs().max().item())
+                    report["checks"].append(dict(
+                        kernel=kern.__name__.removesuffix("_cuda"), dtype=str(dtype), act=act,
+                        gated=gated, B=B, scaled=scale is not None, zero_scales=zero_scales,
+                        max_abs_err=err))
+                    check(err <= lim, f"{kern.__name__} small {dtype} {act} gated={gated}: {err}")
+
+    # -- GLASS FFN at the serving shapes: d 4096, m 14336, block 128, 56 blocks
+    # kept at density 0.5; the shared list serves 2 rows, the rowwise kernel
+    # 4 distinct lists plus 2 inactive rows (block 0, scale 0)
+    for dtype in (torch.float32, torch.bfloat16):
+        for rowwise, B in ((False, 2), (True, 6)):
+            x, wu, wd, idx, wg, sc = ffn_case(dtype, B, 4096, 14336, 128, 56, True, rowwise, False)
+            if rowwise:
+                idx[4:] = 0
+                sc[4:] = 0.0
+            kern = glass_ffn_rowwise_cuda if rowwise else glass_ffn_cuda
+            ref_fn = glass_ffn_rowwise_ref if rowwise else glass_ffn_ref
+            got = kern(x, wu, wd, idx, wg, block_scale=sc)
+            ref = ref_fn(x, wu, wd, idx, wg, block_scale=sc)
+            err = (got - ref).abs().max().item()
+            check(err <= FFN_TOL[dtype] * max(1.0, ref.abs().max().item()),
+                  f"{kern.__name__} serving shape {dtype}: err {err}")
+            name = "glass_ffn_rowwise" if rowwise else "glass_ffn"
+            row = dict(kernel=name, dtype=str(dtype), shape="serving", B=B, max_abs_err=err)
+            if dtype is torch.bfloat16:
+                row["ms"] = timer.ms(lambda: kern(x, wu, wd, idx, wg, block_scale=sc))
+                row["plain_ms"] = timer.ms(lambda: ref_fn(x, wu, wd, idx, wg, block_scale=sc),
+                                           iters=3)
+                row["bound_ms"], row["bound_by"] = _ffn_bound(x, idx, sc, 128, rowwise)
+                row["library_ms"] = None  # no single PyTorch call computes it
+                summary[name] = dict(max_abs_err=err, **{k: row[k] for k in
+                                                         ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                          "library_ms")})
+            report["checks"].append(row)
+        del x, wu, wd, wg
+    emit(report)
+    return summary
+
+
+def _sdpa_ms(timer, q, ck, cv, tab, clen):
+    """The yardstick for paged attention: one scaled_dot_product_attention
+    call over the rows' KV, gathered beforehand, with the same mask."""
+    B, T, K, G, hd = q.shape
+    bs, nb = ck.shape[1], tab.shape[1]
+    kg = ck[tab.long()].reshape(B, nb * bs, K, hd)
+    vg = cv[tab.long()].reshape(B, nb * bs, K, hd)
+    kh = kg.permute(0, 2, 1, 3).repeat_interleave(G, dim=1)  # (B, H, N, hd)
+    vh = vg.permute(0, 2, 1, 3).repeat_interleave(G, dim=1)
+    qh = q.reshape(B, T, K * G, hd).permute(0, 2, 1, 3)
+    qpos = clen.long()[:, None] + torch.arange(T, device=q.device)
+    mask = (qpos[:, :, None] >= torch.arange(nb * bs, device=q.device))[:, None]
+    fn = lambda: torch.nn.functional.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)
+    return timer.ms(fn, cold=True)
+
+
+# -- serve ----------------------------------------------------------------------
+
+
+def _sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _serve(model, params, prior, prompts, max_new, glass, device="cuda", *, max_len=544,
+           chunk_tokens=128, **eng_kw):
+    from repro_torch.serve import PagedEngine
+
+    eng = PagedEngine(model, params, max_slots=8, max_len=max_len, block_size=16,
+                      chunk_tokens=chunk_tokens, glass=glass, global_prior=prior,
+                      alloc_mode="full", device=device, **eng_kw)
+    for i, p in enumerate(prompts):
+        eng.add_request(p, max_new, uid=i)
+    first_logits, done = {}, {}
+    times = {"prefill": [0.0, 0], "decode": [0.0, 0], "mixed": [0.0, 0]}
+    t_all = time.perf_counter()
+    while len(eng.scheduler) or eng.pool.active.any():
+        p0, d0 = eng.prefill_tokens, eng.slot_steps
+        _sync(device)
+        t0 = time.perf_counter()
+        for out in eng.step():
+            if out.finished:
+                done[out.uid] = out
+        _sync(device)
+        dt = time.perf_counter() - t0
+        dp, dd = eng.prefill_tokens - p0, eng.slot_steps - d0
+        kind = "prefill" if dp and not dd else "decode" if dd and not dp else "mixed"
+        times[kind][0] += dt
+        times[kind][1] += dp + dd
+        for uid, lg in eng.last_logits.items():
+            if dd and uid not in first_logits:
+                first_logits[uid] = lg.clone()
+        check(eng.t < 10_000, "engine did not drain")
+    wall = time.perf_counter() - t_all
+    return eng, done, first_logits, times, wall
+
+
+def _device_profile(run):
+    """Device time by kernel over ``run()`` (torch.profiler, CUDA
+    activity): per-group and top-kernel sums, and the busy share of the
+    profiled wall time (a lower bound: the profiler slows the host)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    groups = {"paged_attention": "paged_attention_kernel", "glass_ffn_hidden": "hidden_kernel",
+              "glass_ffn_down": "down_kernel"}
+    by_group, kernels = {}, []
+    for evt in prof.key_averages():
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        ms = evt.self_device_time_total / 1e3
+        name = evt.key
+        group = next((g for g, tag in groups.items() if tag in name), None)
+        if group is None:
+            gemm = any(t in name.lower() for t in ("gemm", "gemv", "nvjet", "xmma", "cutlass"))
+            group = "cublas_gemm" if gemm else "other"
+        by_group[group] = by_group.get(group, 0.0) + ms
+        kernels.append((ms, evt.count, name[:90]))
+    total = sum(by_group.values())
+    kernels.sort(reverse=True)
+    return {"wall_s": wall, "device_ms": total, "device_busy_share": total / 1e3 / wall,
+            "device_ms_by_group": by_group,
+            "top_kernels": [dict(ms=k[0], calls=k[1], name=k[2]) for k in kernels[:10]]}
+
+
+def serve_phase():
+    from repro_torch.configs import get_config
+    from repro_torch.core import GlassConfig
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+
+    cfg = get_config("llama3-8b")
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(SEED, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    prior = torch.rand(cfg.n_layers, cfg.d_ff, generator=gen, device="cuda")
+    rs = np.random.RandomState(SEED)
+    lens = [512, 512, 384, 256, 200, 128]
+    prompts = [rs.randint(0, cfg.vocab_size, n).astype(np.int32) for n in lens]
+    prompts[1] = prompts[0]  # two requests share one prompt -> one block list
+    max_new = 32
+    glass = GlassConfig(density=0.5, selection="block", block_size=128)
+    fast = dict(glass_mode="block_sparse", attn_mode="paged_pallas")
+    # warm-up (library handles, lazy loads) so that the timed run is steady
+    _serve(model, params, prior, [prompts[5][:64]], 4, glass, **fast)
+
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    eng, done, first, times, wall = _serve(model, params, prior, prompts, max_new, glass, **fast)
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    check(sorted(done) == list(range(len(prompts))), f"not every request finished: {sorted(done)}")
+    check(all(len(done[u].tokens) == max_new for u in done), "a request stopped short")
+    check(all(n > 0 for n in launches.values()), f"a kernel never launched: {launches}")
+    check(eng.pool.allocator.n_live == 0, "blocks still live after the drain")
+    shared_equal = bool(np.array_equal(done[0].tokens, done[1].tokens))
+    grouped = eng.grouped_rows
+    del eng
+
+    ops.reset_launch_counts()
+    ref_eng, ref_done, ref_first, _, ref_wall = _serve(model, params, prior, prompts, max_new, glass,
+                                                       glass_mode="masked", attn_mode="gather")
+    check(sum(ops.launch_counts().values()) == 0, "the plain path launched a kernel")
+    del ref_eng
+    profile = _device_profile(lambda: _serve(model, params, prior, prompts, max_new, glass, **fast))
+    rel = {u: ((first[u] - ref_first[u]).norm() / ref_first[u].norm()).item() for u in first}
+    agree = float(np.mean(np.concatenate(
+        [done[u].tokens == ref_done[u].tokens for u in done])))
+    smi = nvidia_smi_line()
+    report = {
+        "phase": "serve", "model": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+        "requests": len(prompts), "prompt_lens": lens, "max_new": max_new,
+        "launches": launches, "grouped_row_ticks": grouped,
+        "shared_prompt_streams_equal": shared_equal,
+        "decode_tok_s": times["decode"][1] / max(times["decode"][0], 1e-9),
+        "prefill_tok_s": times["prefill"][1] / max(times["prefill"][0], 1e-9),
+        "step_seconds": {k: v[0] for k, v in times.items()},
+        "step_tokens": {k: v[1] for k, v in times.items()},
+        "wall_s": wall, "plain_path_wall_s": ref_wall, "init_s": init_s,
+        "max_memory_allocated_bytes": peak,
+        "first_decode_logits_rel_l2": rel, "logits_rel_tol": LOGITS_REL_TOL,
+        "first_decode_argmax_equal": {u: bool(first[u].argmax() == ref_first[u].argmax())
+                                      for u in first},
+        "token_agreement_vs_plain_path": agree, "profile": profile, "card": smi,
+    }
+    emit(report)
+    rels = sorted(rel.values())
+    check(float(np.median(rels)) <= LOGITS_REL_TOL["median"] and rels[-1] <= LOGITS_REL_TOL["max"],
+          f"first-decode logits differ from the plain path beyond {LOGITS_REL_TOL}: {rel}")
+    return launches
+
+
+def env_phase():
+    from repro_torch.kernels import build
+
+    t0 = time.perf_counter()
+    build.build()
+    build_s = time.perf_counter() - t0
+    ptxas = {n: (build.BUILD_DIR / f"{n}.log").read_text() for n in build.KERNEL_SOURCES
+             if (build.BUILD_DIR / f"{n}.log").exists()}
+    emit({"phase": "env", "card": nvidia_smi_line(), "torch": torch.__version__,
+          "cuda": torch.version.cuda, "device": torch.cuda.get_device_name(0),
+          "count": torch.cuda.device_count(), "kernel_build_s": build_s, "ptxas": ptxas})
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this check runs on the card", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    env_phase()
+    summary = kernels_phase(Timer("cuda"))
+    launches = serve_phase()
+    emit({"kernels": [
+        dict(name=name, route="cuda", launches=launches[name], **KERNELS[name], **summary[name])
+        for name in KERNELS
+    ]})
+    print(nvidia_smi_line(), flush=True)
+    emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

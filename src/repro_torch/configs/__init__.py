@@ -1,0 +1,4 @@
+from . import llama3_8b
+from .registry import get_config, list_archs
+
+__all__ = ["get_config", "list_archs"]

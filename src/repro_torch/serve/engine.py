@@ -1,0 +1,509 @@
+"""Paged continuous-batching engine with GLASS decode (dense family).
+
+The port of ``repro/serve/engine.py:PagedEngine`` on the path the paper's
+serving loop runs: a :class:`BlockPool` block table, prompts prefilled in
+chunks of at most ``chunk_tokens`` interleaved with decode ticks (GLASS
+local stats accumulate across chunks; the fused mask is built at the final
+chunk), FIFO admission with each request's full KV need reserved at
+admission (``alloc_mode="full"``), and greedy decode of the fixed
+``max_slots`` batch through the block table:
+
+  * ``glass_mode="block_sparse"`` feeds each slot's active block list to the
+    GLASS FFN kernels; rows whose lists coincide batch through the
+    shared-list kernel, the rest through the rowwise kernel;
+  * ``glass_mode="masked"`` multiplies each slot's unit mask into h;
+  * ``attn_mode="paged_pallas"`` runs the paged-attention kernel,
+    ``"gather"`` the dense gather + softmax.
+
+Decode runs one tick per :meth:`step` (the JAX engine fuses up to
+``decode_chunk`` ticks into one program; the token streams are the same).
+Options of the JAX engine outside this path raise ``NotImplementedError``
+naming the ROADMAP item that ports them.
+"""
+from __future__ import annotations
+
+import itertools
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..core.fusion import GlassConfig, merge_stat_sums
+from ..core.glass import GlassParams, build_masks
+from ..models.api import Model
+from ..models.common import resolve_device
+from .kv_pool import BlockPool, pow2_bucket
+from .lifecycle import Lifecycle, LiveRequest, ReqState
+from .sampling import SamplingParams
+from .scheduler import AdmissionPolicy, Request, RequestOutput, Scheduler
+
+
+class GlassSlotState:
+    """Per-slot GLASS rows for the paged engine: ``masked`` keeps a float
+    mask arena (L, max_slots, m); ``block_sparse`` keeps the active block
+    ids and their f32 tile scales, (L, max_slots, nb_keep) each.  The arena
+    is created on the first admission (that fixes its shapes); a cleared
+    row (zero mask, zero scales on block 0) contributes exactly zero."""
+
+    def __init__(self, gcfg: GlassConfig, prior: torch.Tensor, mode: str, max_slots: int):
+        if mode == "compact":
+            raise NotImplementedError("glass_mode='compact' is ROADMAP Queue 1 item 6")
+        if mode not in ("masked", "block_sparse"):
+            raise ValueError(mode)
+        if mode == "block_sparse" and gcfg.selection != "block":
+            raise ValueError(
+                "block_sparse mode (the default) needs GlassConfig(selection='block'); "
+                "pass glass_mode='masked' for another selection"
+            )
+        self.gcfg = gcfg
+        self.prior = prior
+        self.mode = mode
+        self.max_slots = max_slots
+        self.arena = None
+
+    def _rows(self, stats_list):
+        stacked = {k: torch.stack([st[k] for st in stats_list]) for k in stats_list[0]}
+        ms = build_masks(stacked, self.prior, self.gcfg, slot_axis=True)
+        if self.mode == "masked":
+            return {"mask": ms.mask}  # (L, R, m)
+        # all-ones scales: 1.0 * tile is bitwise the unscaled tile
+        return {"idx": ms.idx, "scale": torch.ones(ms.idx.shape, device=ms.idx.device)}
+
+    def admit(self, slots: List[int], stats_list) -> Dict[str, torch.Tensor]:
+        """Fuse each request's stats with the prior, write the rows into the
+        arena at ``slots``, and return the rows (slot axis ``len(slots)``)."""
+        rows = self._rows(stats_list)
+        if self.arena is None:
+            self.arena = {
+                k: torch.zeros((r.shape[0], self.max_slots) + tuple(r.shape[2:]),
+                               dtype=r.dtype, device=r.device)
+                for k, r in rows.items()
+            }
+        idx = torch.as_tensor(slots, device=self.prior.device)
+        for k, r in rows.items():
+            self.arena[k][:, idx] = r
+        return rows
+
+    def clear(self, slot: int) -> None:
+        if self.arena is not None:
+            for a in self.arena.values():
+                a[:, slot] = 0
+
+
+class PagedEngine:
+    """Continuous batching over a paged KV block table (see the module
+    docstring).  Submit with :meth:`add_request`, consume
+    :class:`RequestOutput` deltas from :meth:`step`, cancel with
+    :meth:`abort`; :meth:`run` serves until the queue drains.
+
+    The constructor keeps the JAX engine's signature, plus ``device`` (the
+    device the params live on), with the slice's path as its defaults:
+    ``glass_mode="block_sparse"`` and ``alloc_mode="full"``.  ``decode_chunk``
+    and ``verify_mode`` stay in the signature only so that a call written
+    for the JAX engine runs unchanged; they have no effect here (one tick per
+    step gives the same token stream as a fused horizon; ``verify_mode``
+    matters only with ``spec_k > 0``, which raises).
+    """
+
+    def __init__(
+        self,
+        model: Model,
+        params,
+        *,
+        max_slots: int = 8,
+        max_len: int = 256,
+        block_size: int = 16,
+        num_blocks: Optional[int] = None,
+        chunk_tokens: int = 32,
+        glass: Optional[GlassConfig] = None,
+        global_prior=None,
+        glass_mode: str = "block_sparse",  # block_sparse | masked (compact: not ported)
+        policy: AdmissionPolicy = AdmissionPolicy.FIFO,
+        alloc_mode: str = "full",  # full (incremental: not ported)
+        preemption=None,
+        spec_k: int = 0,
+        temperature: float = 0.0,
+        top_k: int = 0,
+        rng=None,
+        decode_chunk: int = 8,
+        sampling: Optional[SamplingParams] = None,
+        prefix_cache: bool = False,
+        attn_mode: str = "gather",  # gather | paged_pallas (the paged-attention kernel)
+        verify_mode: str = "auto",
+        device="cuda",
+    ):
+        if glass is not None and global_prior is None:
+            raise ValueError("GLASS needs the offline prior (global_prior)")
+        if model.cfg.family != "dense":
+            raise NotImplementedError(
+                f"family={model.cfg.family!r}: the port serves the dense family only "
+                "(ROADMAP Queue 1 item 8)"
+            )
+        if attn_mode not in ("gather", "paged_pallas"):
+            raise ValueError(f"unknown attn_mode {attn_mode!r}")
+        if verify_mode not in ("auto", "sequential", "parallel"):
+            raise ValueError(f"unknown verify_mode {verify_mode!r}")
+        if chunk_tokens < 1:
+            raise ValueError(f"chunk_tokens must be >= 1, got {chunk_tokens}")
+        if alloc_mode not in ("incremental", "full"):
+            raise ValueError(f"unknown alloc_mode {alloc_mode!r}")
+        if spec_k < 0:
+            raise ValueError(f"spec_k must be >= 0, got {spec_k}")
+        if alloc_mode == "incremental" or preemption is not None:
+            raise NotImplementedError(
+                "alloc_mode='incremental' and preemption are ROADMAP Queue 1 item 1; "
+                "pass alloc_mode='full' (each request's full KV need reserved at admission)"
+            )
+        if policy is not AdmissionPolicy.FIFO:
+            raise NotImplementedError(f"policy={policy}: only FIFO is ported (ROADMAP Queue 1 item 1)")
+        if spec_k or (glass is not None and glass.draft_ratio is not None):
+            raise NotImplementedError(
+                "speculative decode (spec_k > 0, a draft tier) is ROADMAP Queue 1 item 4"
+            )
+        if prefix_cache:
+            raise NotImplementedError("prefix_cache=True is ROADMAP Queue 1 item 5")
+        if (temperature > 0.0 or top_k != 0 or rng is not None
+                or (sampling is not None and not sampling.is_greedy)):
+            raise NotImplementedError("sampled decoding is ROADMAP Queue 1 item 2; the port is greedy")
+        self.device = resolve_device(device)
+        if any(t.device != self.device for t in _leaves(params)):
+            raise ValueError(f"params must live on the engine's device {self.device}")
+        if global_prior is not None and global_prior.device != self.device:
+            raise ValueError(f"global_prior must live on the engine's device {self.device}")
+        self.model = model
+        self.params = params
+        self.default_sampling = sampling if sampling is not None else SamplingParams.make_greedy()
+        self._auto_uid = itertools.count()
+        self._used_uids: set = set()
+        self._policies: Dict[int, Tuple[SamplingParams, GlassParams]] = {}
+        self.chunk_tokens = chunk_tokens
+        self.attn_mode = attn_mode
+        self.pool = BlockPool(model.cfg, max_slots, max_len, block_size, num_blocks,
+                              device=self.device)
+        self.scheduler = Scheduler(max_len)
+        self.glass = glass
+        self.glass_slots = (
+            GlassSlotState(glass, global_prior, glass_mode, max_slots) if glass is not None else None
+        )
+        self._mode = self.glass_slots.mode if self.glass_slots is not None else None
+        self.lc = Lifecycle()
+        self.t = 0
+        self.slot_steps = 0  # decode ticks x decoding slots
+        self.prefill_tokens = 0  # prompt tokens prefilled
+        self.grouped_rows = 0  # decode row-ticks served by the shared-list kernel
+        # {uid: f32 logits row} of the requests decoded in the latest tick
+        self.last_logits: Dict[int, torch.Tensor] = {}
+
+    # -- public API ---------------------------------------------------------
+
+    def add_request(
+        self,
+        prompt,
+        max_new: int,
+        *,
+        sampling: Optional[SamplingParams] = None,
+        glass: Optional[GlassParams] = None,
+        uid: Optional[int] = None,
+        arrival: Optional[int] = None,
+        priority: int = 0,
+        deadline: Optional[int] = None,
+    ) -> int:
+        """Enqueue one request; returns its uid (auto-assigned when not
+        given).  Every :meth:`step` returns :class:`RequestOutput` deltas
+        for live requests and a final ``finished=True`` output."""
+        if uid is None:
+            uid = next(self._auto_uid)
+            while uid in self._used_uids:
+                uid = next(self._auto_uid)
+        req = Request(
+            uid=uid, prompt=np.asarray(prompt, np.int32), max_new=max_new,
+            arrival=self.t if arrival is None else arrival,
+            priority=priority, deadline=deadline, sampling=sampling, glass=glass,
+        )
+        self._submit(req)
+        return uid
+
+    def _submit(self, req: Request) -> None:
+        need = self.pool.blocks_needed(self._rows_needed(req))
+        if need > self.pool.num_blocks - 1:
+            raise ValueError(
+                f"request {req.uid} needs {need} blocks > pool capacity {self.pool.num_blocks - 1}"
+            )
+        if req.uid in self.lc.entries or any(q.uid == req.uid for q in self.scheduler.queue):
+            raise ValueError(f"request uid {req.uid} is already in flight")
+        policy = self._resolve_policy(req)
+        self.scheduler.submit(req)
+        self._policies[req.uid] = policy
+        self._used_uids.add(req.uid)
+
+    def _resolve_policy(self, req: Request) -> Tuple[SamplingParams, GlassParams]:
+        sp = req.sampling if req.sampling is not None else self.default_sampling
+        if not sp.is_greedy:
+            raise NotImplementedError(
+                f"request {req.uid}: sampled decoding is ROADMAP Queue 1 item 2"
+            )
+        gp = (req.glass if req.glass is not None else GlassParams()).resolve(self.glass, 0)
+        if gp.spec_k:
+            raise NotImplementedError(
+                f"request {req.uid}: speculative decode is ROADMAP Queue 1 item 4"
+            )
+        if req.glass is not None and req.glass.draft_ratio is not None:
+            raise NotImplementedError(
+                f"request {req.uid}: draft tiers are ROADMAP Queue 1 item 4"
+            )
+        if self.glass is None:
+            if gp.density is not None:
+                raise ValueError(
+                    f"request {req.uid}: per-request GLASS params need an engine-level "
+                    "GlassConfig (the engine serves dense)"
+                )
+            return sp, gp
+        eps = 1e-9
+        if gp.density > self.glass.density + eps:
+            raise ValueError(
+                f"request {req.uid}: density {gp.density} exceeds the engine capacity tier "
+                f"{self.glass.density}"
+            )
+        if gp.density < self.glass.density - eps:
+            raise NotImplementedError(
+                f"request {req.uid}: a density below the engine's is ROADMAP Queue 1 item 3"
+            )
+        return sp, gp
+
+    def abort(self, uid: int) -> Optional[RequestOutput]:
+        """Cancel a request in any state, releasing its slot, blocks and
+        GLASS rows.  Returns the final aborted output, or None if the uid
+        is not live."""
+        e = self.lc.entries.get(uid)
+        if e is None:
+            r = self.scheduler.remove(uid)
+            if r is None:
+                return None
+            e = self.lc.add(r)
+        elif e.state in (ReqState.PREFILLING, ReqState.RUNNING):
+            self._release(e)
+        self.lc.to(e, ReqState.FINISHED)
+        self._policies.pop(uid, None)
+        e.finish_reason = "aborted"
+        return self._output(e, finished=True, reason="aborted")
+
+    def run(self, requests=(), max_steps: Optional[int] = None) -> Dict[int, RequestOutput]:
+        """Submit ``requests`` (:class:`Request` objects) and serve until the
+        queue and the slots drain; returns {uid: final RequestOutput}."""
+        for r in requests:
+            self._submit(r)
+        if max_steps is None:
+            queued = list(self.scheduler.queue)
+            live = [e.req for e in self.lc.entries.values()]
+            chunks = self.chunk_tokens
+            budget = sum(r.max_new + -(-len(r.prompt) // chunks) for r in queued + live)
+            arrivals = [r.arrival for r in queued] + [0]
+            max_steps = self.t + max(arrivals) + budget + len(queued) + self.pool.max_slots + 8
+        done: Dict[int, RequestOutput] = {}
+        while len(self.scheduler) or self.pool.active.any():
+            if self.t > max_steps:
+                raise RuntimeError(f"PagedEngine did not drain in {max_steps} steps")
+            for f in self.step():
+                if f.finished:
+                    done[f.uid] = f
+        return done
+
+    def step(self) -> List[RequestOutput]:
+        """One engine tick: admissions, at most one bounded prefill chunk,
+        then one decode tick over every running request.  Returns the
+        tick's outputs: one ``finished=True`` entry per request that
+        completed and one delta per live request that grew."""
+        out: List[RequestOutput] = []
+        self._admit_tick()
+        prefilled = self._prefill_tick(out)
+        self._admit_tick()  # a finished max_new == 1 request frees capacity
+        if not self._decode_tick(out):
+            if prefilled:
+                self.t += 1
+            else:
+                na = self.scheduler.next_arrival()
+                self.t = max(self.t + 1, na if na is not None else self.t + 1)
+        for e in self.lc.in_state(ReqState.PREFILLING, ReqState.RUNNING):
+            if len(e.outputs) > e.emitted:
+                out.append(self._output(e, finished=False))
+        return out
+
+    # -- lifecycle transitions ----------------------------------------------
+
+    def _rows_needed(self, r: Request) -> int:
+        return len(r.prompt) + r.max_new - 1
+
+    def _output(self, e: LiveRequest, *, finished: bool,
+                reason: Optional[str] = None) -> RequestOutput:
+        out = RequestOutput(
+            uid=e.uid,
+            prompt=np.asarray(e.req.prompt, np.int32),
+            new_tokens=np.asarray(e.outputs[e.emitted:], np.int32),
+            tokens=np.asarray(e.outputs, np.int32),
+            finished=finished,
+            finish_reason=reason,
+            arrival=e.req.arrival,
+            admitted_step=e.first_admitted_step,
+            finished_step=self.t if finished else -1,
+        )
+        e.emitted = len(e.outputs)
+        return out
+
+    def _release(self, e: LiveRequest) -> None:
+        self.pool.free(e.slot)
+        if self.glass_slots is not None:
+            self.glass_slots.clear(e.slot)
+        e.slot = -1
+        e.pstats = None
+
+    def _finish(self, e: LiveRequest, out: List[RequestOutput], reason: str) -> None:
+        e.finish_reason = reason
+        out.append(self._output(e, finished=True, reason=reason))
+        self._release(e)
+        self.lc.to(e, ReqState.FINISHED)
+        self._policies.pop(e.uid, None)
+
+    def _maybe_finish(self, e: LiveRequest, out: List[RequestOutput]) -> None:
+        tok = e.outputs[-1]
+        if tok in e.sp.stop_set:
+            self._finish(e, out, "eos" if tok == e.sp.eos_token_id else "stop")
+        elif len(e.outputs) >= e.req.max_new:
+            self._finish(e, out, "length")
+
+    def _admit_tick(self) -> None:
+        """WAITING -> PREFILLING in FIFO order while a slot and the
+        request's full block need are free."""
+        while self.pool.n_free_slots:
+            got = self.scheduler.pop_admissible(
+                self.t, 1, fits=lambda r: self.pool.fits(self._rows_needed(r))
+            )
+            if not got:
+                return
+            r = got[0]
+            slot = self.pool.admit(self._rows_needed(r))
+            if slot is None:  # ``fits`` held, so this cannot happen; retry later
+                self.scheduler.requeue(r)
+                return
+            e = self.lc.add(r)
+            e.sp, e.gp = self._policies[r.uid]
+            self.lc.to(e, ReqState.PREFILLING)
+            e.slot = slot
+            e.admitted_step = e.first_admitted_step = self.t
+
+    def _prefill_tick(self, out: List[RequestOutput]) -> bool:
+        """Run ONE bounded chunk for the oldest mid-prefill request; at the
+        final chunk build its GLASS rows and take its first token."""
+        pre = self.lc.in_state(ReqState.PREFILLING)
+        if not pre:
+            return False
+        e = min(pre, key=lambda e: (e.admitted_step, e.uid))
+        r, slot, pos = e.req, e.slot, e.prefill_pos
+        # chunks never cross the prompt boundary: the stat sums cover exactly
+        # the prompt tokens
+        T = min(self.chunk_tokens, len(r.prompt) - pos)
+        dev = self.device
+        toks = torch.as_tensor(r.prompt[pos : pos + T], dtype=torch.int64, device=dev)[None]
+        # gather width covers the prefilled prefix plus this chunk
+        nb = pow2_bucket(-(-(pos + T) // self.pool.block_size), self.pool.nb_max)
+        btab = torch.as_tensor(self.pool.block_table[slot : slot + 1, :nb], device=dev)
+        logits, _, stats = self.model.prefill_chunk(
+            self.params, toks, self.pool.cache, torch.tensor([pos], dtype=torch.int32, device=dev),
+            block_table=btab, attn_mode=self.attn_mode,
+        )
+        self.pool.lengths[slot] = pos + T
+        e.prefill_pos = pos + T
+        e.pstats = merge_stat_sums(e.pstats, stats)
+        self.prefill_tokens += T
+        if pos + T == len(r.prompt):  # final chunk: finalize GLASS + first token
+            if self.glass_slots is not None:
+                rows = self.glass_slots.admit([slot], [e.pstats])
+                if self._mode == "block_sparse":
+                    # group-by key for the shared-list kernel: rows batch
+                    # through one list only when list AND scales coincide
+                    e.glass_key = (rows["idx"][:, 0].cpu().numpy().tobytes()
+                                   + rows["scale"][:, 0].cpu().numpy().tobytes())
+            e.pstats = None
+            self.lc.to(e, ReqState.RUNNING)
+            first = int(torch.argmax(logits[0, -1].float()))
+            e.outputs = [first]
+            e.pending = first
+            self._maybe_finish(e, out)
+        return True
+
+    def _ffn_grouping(self, run: List[LiveRequest]):
+        """Group decode rows by identical active-block lists (block_sparse
+        mode): groups of >= 2 rows batch through the shared-list kernel;
+        singletons and inactive rows take the rowwise kernel.  Returns
+        (group sizes, row permutation) or ((), None)."""
+        if self._mode != "block_sparse":
+            return (), None
+        groups: Dict[bytes, List[int]] = {}
+        for e in sorted(run, key=lambda e: e.slot):
+            groups.setdefault(e.glass_key, []).append(e.slot)
+        multi = [g for g in groups.values() if len(g) > 1]
+        if not multi:
+            return (), None
+        multi.sort(key=lambda g: (-len(g), g[0]))  # canonical: sizes descending
+        in_multi = {s for g in multi for s in g}
+        rest = [s for s in range(self.pool.max_slots) if s not in in_multi]
+        perm = [s for g in multi for s in g] + rest
+        return tuple(len(g) for g in multi), np.asarray(perm, np.int64)
+
+    def _scan_inputs(self, run: List[LiveRequest]):
+        """Fixed-width (``max_slots``) batch arrays for one decode tick:
+        per-slot lengths and tokens, and a gather-width-bucketed block table
+        (non-participants point at trash block 0 with length 0)."""
+        B = self.pool.max_slots
+        decoding = np.zeros((B,), bool)
+        lengths = np.zeros((B,), np.int32)
+        toks = np.zeros((B,), np.int64)
+        for e in run:
+            decoding[e.slot] = True
+            lengths[e.slot] = self.pool.lengths[e.slot]
+            toks[e.slot] = e.pending
+        need = int(max(lengths[e.slot] + 1 for e in run))
+        nb = pow2_bucket(-(-need // self.pool.block_size), self.pool.nb_max)
+        btab = np.where(decoding[:, None], self.pool.block_table[:, :nb], 0).astype(np.int32)
+        return lengths, toks, btab
+
+    def _decode_tick(self, out: List[RequestOutput]) -> bool:
+        """One greedy decode tick over every RUNNING request."""
+        run = self.lc.in_state(ReqState.RUNNING)
+        if not run:
+            return False
+        dev = self.device
+        lengths, toks, btab = self._scan_inputs(run)
+        kw = dict(block_table=torch.as_tensor(btab, device=dev), attn_mode=self.attn_mode)
+        groups, perm = self._ffn_grouping(run)
+        if self._mode == "masked":
+            kw["ffn_masks"] = self.glass_slots.arena["mask"]
+        elif self._mode == "block_sparse":
+            arena = self.glass_slots.arena
+            kw.update(ffn_block_idx=arena["idx"], ffn_block_scale=arena["scale"],
+                      ffn_block_size=self.glass.block_size)
+            if groups:
+                kw.update(ffn_groups=groups, ffn_row_perm=torch.as_tensor(perm, device=dev))
+        logits, _ = self.model.decode_step(
+            self.params, torch.as_tensor(toks, device=dev)[:, None], self.pool.cache,
+            torch.as_tensor(lengths, device=dev), **kw,
+        )
+        lg = logits[:, -1].float()
+        nxt = torch.argmax(lg, dim=-1).cpu().numpy()
+        self.last_logits = {e.uid: lg[e.slot] for e in run}
+        self.slot_steps += len(run)
+        self.grouped_rows += sum(groups)
+        for e in run:
+            self.pool.lengths[e.slot] += 1
+            e.outputs.append(int(nxt[e.slot]))
+            e.pending = e.outputs[-1]
+            self._maybe_finish(e, out)
+        self.t += 1
+        return True
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree

@@ -52,6 +52,11 @@ def pytest_configure(config):
         "XLA_FLAGS=--xla_force_host_platform_device_count=8, excluded from "
         "tier-1",
     )
+    config.addinivalue_line(
+        "markers",
+        "gpu: needs a CUDA card (the PyTorch port's CUDA kernels have no CPU "
+        "mode); skips on hosts without one",
+    )
 
 
 # ATTN_MODE=paged_pallas reruns the whole serving corpus through the fused

@@ -1,0 +1,218 @@
+"""The port's PagedEngine against the JAX package's, and its guard rails.
+
+Both engines serve the same workload on the same weights (numpy bridge)
+with ``alloc_mode="full"``; greedy token streams must be EQUAL, dense and
+with GLASS block-sparse decode, including two requests that share a prompt
+and so batch through the shared-list kernel.  The tiny float32 config is
+the JAX suites' (``tests/test_paged_serving.py``).
+"""
+import dataclasses
+import os
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import GlassConfig as JaxGlassConfig
+from repro.models import ModelConfig as JaxModelConfig
+from repro.models import build_model as jax_build_model
+from repro.serve.engine import PagedEngine as JaxPagedEngine
+from repro_torch.core import GlassConfig, GlassParams
+from repro_torch.models import ModelConfig, build_model
+from repro_torch.params import from_reference
+from repro_torch.serve import AdmissionPolicy, PagedEngine, SamplingParams
+
+BASE = dict(n_layers=2, d_model=48, n_heads=4, n_kv_heads=2, head_dim=12,
+            d_ff=96, vocab_size=101, dtype="float32", remat="none")
+JCFG = JaxModelConfig(name="te-dense", family="dense", **BASE)
+ENGINE = dict(max_slots=3, max_len=32, block_size=8, chunk_tokens=5, alloc_mode="full")
+SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "src")
+
+
+@pytest.fixture(scope="module")
+def models():
+    jmodel = jax_build_model(JCFG)
+    jparams = jmodel.init(jax.random.key(0))
+    model = build_model(ModelConfig.from_dict(dataclasses.asdict(JCFG)))
+    params = from_reference(jax.device_get(jparams), device="cpu")
+    prior = np.abs(np.random.RandomState(7).randn(JCFG.n_layers, JCFG.d_ff)).astype(np.float32)
+    return jmodel, jparams, model, params, prior
+
+
+def _workload():
+    """(prompt, max_new): requests 0 and 1 share a prompt."""
+    rng = np.random.RandomState(0)
+    shared = rng.randint(3, 101, size=11).astype(np.int32)
+    return [(shared, 10), (shared, 10), (rng.randint(3, 101, size=7).astype(np.int32), 6),
+            (rng.randint(3, 101, size=9).astype(np.int32), 8)]
+
+
+def _serve(eng, work):
+    for uid, (prompt, max_new) in enumerate(work):
+        eng.add_request(prompt, max_new, uid=uid)
+    return eng.run()
+
+
+@pytest.fixture(scope="module")
+def jax_streams(models):
+    """{glass_mode: the JAX engine's final outputs} (gather attention), run
+    once per mode and shared by the port's attention modes."""
+    jmodel, jparams, _, _, prior = models
+    runs = {}
+
+    def get(glass_mode):
+        if glass_mode not in runs:
+            jkw = {}
+            if glass_mode:
+                jkw = dict(glass=JaxGlassConfig(density=0.5, selection="block", block_size=32),
+                           global_prior=jnp.asarray(prior), glass_mode=glass_mode)
+            runs[glass_mode] = _serve(JaxPagedEngine(jmodel, jparams, **ENGINE, **jkw),
+                                      _workload())
+        return runs[glass_mode]
+
+    return get
+
+
+@pytest.mark.parametrize("glass_mode,attn_mode", [
+    (None, "gather"), (None, "paged_pallas"), ("block_sparse", "gather"),
+    ("block_sparse", "paged_pallas"),
+])
+def test_greedy_streams_equal_jax_engine(models, jax_streams, glass_mode, attn_mode):
+    _, _, model, params, prior = models
+    kw = {}
+    if glass_mode:
+        kw = dict(glass=GlassConfig(density=0.5, selection="block", block_size=32),
+                  global_prior=torch.from_numpy(prior), glass_mode=glass_mode)
+    work = _workload()
+    jdone = jax_streams(glass_mode)
+    eng = PagedEngine(model, params, **ENGINE, **kw, attn_mode=attn_mode, device="cpu")
+    done = _serve(eng, work)
+    assert sorted(done) == sorted(jdone) == list(range(len(work)))
+    for uid in done:
+        np.testing.assert_array_equal(done[uid].tokens, jdone[uid].tokens, err_msg=f"uid={uid}")
+        assert done[uid].finish_reason == jdone[uid].finish_reason == "length"
+    if glass_mode == "block_sparse":
+        assert eng.grouped_rows > 0  # the shared prompt went through the shared-list kernel
+    # the drained pool is empty
+    assert eng.pool.allocator.n_live == 0
+    assert eng.pool.n_free_slots == ENGINE["max_slots"] and not eng.pool.active.any()
+    assert not eng.lc.entries and not len(eng.scheduler)
+
+
+def test_abort_and_stop_release_everything(models):
+    _, _, model, params, prior = models
+    glass = dict(glass=GlassConfig(density=0.5, selection="block", block_size=32),
+                 global_prior=torch.from_numpy(prior), glass_mode="block_sparse")
+    work = _workload()
+    ref = _serve(PagedEngine(model, params, **ENGINE, **glass, device="cpu"), work)
+    eng = PagedEngine(model, params, **ENGINE, **glass, device="cpu")
+    eos = int(ref[2].tokens[2])
+    for uid, (prompt, max_new) in enumerate(work):
+        sp = SamplingParams.make_greedy(eos_token_id=eos) if uid == 2 else None
+        eng.add_request(prompt, max_new, uid=uid, sampling=sp)
+    eng.add_request(work[3][0], 4, uid=9)  # aborted while queued
+    for _ in range(4):
+        eng.step()
+    assert eng.abort(9).finish_reason == "aborted"
+    running = next(e.uid for e in eng.lc.entries.values() if e.state.value == "running")
+    aborted = eng.abort(running)
+    assert aborted.finish_reason == "aborted" and eng.abort(running) is None
+    done = eng.run()
+    stop_at = list(ref[2].tokens).index(eos) + 1
+    np.testing.assert_array_equal(done[2].tokens, ref[2].tokens[:stop_at])
+    assert done[2].finish_reason == "eos"
+    assert eng.pool.allocator.n_live == 0 and not eng.lc.entries
+
+
+@pytest.mark.parametrize("kwargs,match", [
+    (dict(alloc_mode="incremental"), "item 1"),
+    (dict(preemption=object()), "item 1"),
+    (dict(policy=AdmissionPolicy.PRIORITY), "item 1"),
+    (dict(temperature=0.8), "item 2"),
+    (dict(top_k=40), "item 2"),
+    (dict(sampling=SamplingParams(seed=3)), "item 2"),
+    (dict(spec_k=2), "item 4"),
+    (dict(glass=GlassConfig(density=0.5, draft_ratio=0.5)), "item 4"),
+    (dict(prefix_cache=True), "item 5"),
+    (dict(glass_mode="compact"), "item 6"),
+])
+def test_options_outside_the_slice_raise(models, kwargs, match):
+    _, _, model, params, prior = models
+    kw = dict(ENGINE, glass=GlassConfig(density=0.5, selection="neuron"),
+              global_prior=torch.from_numpy(prior), glass_mode="masked", device="cpu")
+    kw.update(kwargs)
+    with pytest.raises(NotImplementedError, match=match):
+        PagedEngine(model, params, **kw)
+
+
+@pytest.mark.parametrize("request_kw,match", [
+    (dict(sampling=SamplingParams(seed=5, temperature=0.9)), "item 2"),
+    (dict(glass=GlassParams(density=0.25)), "item 3"),
+    (dict(glass=GlassParams(spec_k=2)), "item 4"),
+])
+def test_request_options_outside_the_slice_raise(models, request_kw, match):
+    _, _, model, params, prior = models
+    eng = PagedEngine(model, params, **ENGINE, glass=GlassConfig(density=0.5),
+                      global_prior=torch.from_numpy(prior), glass_mode="masked", device="cpu")
+    with pytest.raises(NotImplementedError, match=match):
+        eng.add_request(np.arange(5, dtype=np.int32), 3, **request_kw)
+    assert not len(eng.scheduler)
+
+
+def test_defaults_are_the_slice_path(models):
+    """With no mode given, the engine serves the slice's path: full
+    allocation and block-sparse GLASS decode."""
+    _, _, model, params, prior = models
+    eng = PagedEngine(model, params, max_slots=3, max_len=32, block_size=8,
+                      glass=GlassConfig(density=0.5, selection="block", block_size=32),
+                      global_prior=torch.from_numpy(prior), device="cpu")
+    assert eng.glass_slots.mode == "block_sparse"
+    with pytest.raises(ValueError, match="glass_mode='masked'"):
+        PagedEngine(model, params, glass=GlassConfig(density=0.5),
+                    global_prior=torch.from_numpy(prior), device="cpu")
+
+
+def test_other_families_raise():
+    moe = build_model(ModelConfig(name="m", family="moe", n_experts=4, n_experts_per_tok=2,
+                                  **BASE))
+    with pytest.raises(NotImplementedError, match="item 8"):
+        PagedEngine(moe, {}, **ENGINE, device="cpu")
+
+
+def test_port_imports_no_jax_and_nothing_of_repro():
+    """In a fresh interpreter, importing every repro_torch module (and
+    chip_smoke) leaves jax and repro out of sys.modules."""
+    code = (
+        "import importlib, pkgutil, sys, repro_torch\n"
+        "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "import chip_smoke\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'repro' or m.startswith('repro.')]\n"
+        "assert not bad, bad\n"
+        "print(len([m for m in sys.modules if m.startswith('repro_torch')]))\n"
+    )
+    root = os.path.dirname(SRC)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([SRC, root]))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, env=env,
+                         cwd=root, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) >= 20
+
+
+def test_entry_points_refuse_to_run_on_cpu_unasked(models):
+    """With no device given, the entry points target CUDA; on a host
+    without a card they fail instead of carrying on on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA card: the default device is valid here")
+    jmodel, jparams, model, params, prior = models
+    with pytest.raises(RuntimeError, match="CUDA"):
+        model.init(0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        from_reference(jax.device_get(jparams))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        PagedEngine(model, params, **ENGINE)
