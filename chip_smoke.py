@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """On-card check of the PyTorch/CUDA port: builds its kernels, holds each
-against its plain version, and serves Llama-3-8B through the main path.
+against its plain version, and serves Llama-3-8B through its paths.
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -10,10 +10,20 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
   env      card name and power limit, torch/CUDA versions, kernel build time
   kernels  every kernel against its plain version at the Llama-3-8B serving
            shapes and at small shapes (window, softcap, ungated FFN, every
-           activation, zero scales), in f32 and bf16; the bitwise T-wide and
-           nb-bucket checks of paged attention; kernel, plain-version and
+           activation, zero scales, K == H, Sq < Skv), in f32 and bf16; the
+           bitwise T-wide and nb-bucket checks of paged attention and the
+           bitwise repeat check of local stats; kernel, plain-version and
            one-library-call times
-  serve    Llama-3-8B at full width (random bf16 weights from the seed)
+  engine   Llama-3-8B at full width (random bf16 weights from the seed)
+           through the full-sequence prefill (flash-attention and
+           local-stats kernels): Engine.generate on 4 prompts of 512 tokens
+           in compact and block-sparse GLASS mode, and ContinuousEngine
+           (compact, 2 slots) on requests of 512, 384, 200 and 37 tokens;
+           launch counts (32 of each prefill kernel per prefill call); each
+           request's last-prompt logits against the gather-attention chunked
+           prefill, and its first token against Engine.generate alone; a
+           device profile of one Engine.generate
+  serve    the same model (random bf16 weights from the seed)
            through repro_torch's PagedEngine with block-sparse GLASS decode
            and the paged-attention kernel; every kernel's launch count from
            that run; the same requests again through the plain path
@@ -55,6 +65,19 @@ FFN_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}  # GLASS FFN, relative to 
 # do).  Correct runs read 0.027-0.035 for every request (NVIDIA H100 80GB
 # HBM3, 700 W); unrelated logits read about 1.4.
 LOGITS_REL_TOL = {"median": 0.05, "max": 0.1}
+# flash attention: the paged-attention limits (the same two roundings of
+# each probability term, the same output rounding)
+FA_F32_ATOL, FA_BF16_RTOL = PA_F32_ATOL, PA_BF16_RTOL
+# local stats: |got - ref| <= 1e-5 * |ref| + 1e-6.  Both read the same
+# values in f32 and differ only in summation order (T terms of at most 1)
+LS_RTOL, LS_ATOL = 1e-5, 1e-6
+# engine: ||a - b|| / ||b|| of each request's last-prompt-position logits,
+# flash-attention prefill against the gather-attention chunked prefill,
+# bf16 over 32 layers: the two round attention differently, as the decode
+# paths of the serve phase do.  Correct runs read 0.0154-0.0164 for the
+# four requests (NVIDIA H100 80GB HBM3, 700 W); unrelated logits read
+# about 1.4.
+PREFILL_LOGITS_REL_TOL = {"median": 0.03, "max": 0.05}
 
 KERNELS = {
     "paged_attention": dict(
@@ -69,7 +92,17 @@ KERNELS = {
         source="src/repro_torch/csrc/glass_ffn.cu",
         replaces="src/repro/kernels/glass_ffn.py:161",
     ),
+    "local_stats": dict(
+        source="src/repro_torch/csrc/local_stats.cu",
+        replaces="src/repro/kernels/local_stats.py:51",
+    ),
+    "flash_attention": dict(
+        source="src/repro_torch/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:97",
+    ),
 }
+SERVE_KERNELS = ("paged_attention", "glass_ffn", "glass_ffn_rowwise")  # PagedEngine decode
+PREFILL_KERNELS = ("flash_attention", "local_stats")  # Model.prefill
 
 
 def emit(obj) -> None:
@@ -319,8 +352,114 @@ def kernels_phase(timer):
                                                           "library_ms")})
             report["checks"].append(row)
         del x, wu, wd, wg
+    prefill_kernel_checks(timer, gen, dev, summary, report)
     emit(report)
     return summary
+
+
+def _flash_err(got, q, k, v, window, softcap):
+    """(max |got - ref|, its largest ratio to the elementwise limit)."""
+    from repro_torch.kernels.ref import flash_attention_ref
+
+    ref = flash_attention_ref(q, k, v, window=window, softcap=softcap)
+    err = (got.float() - ref.float()).abs()
+    if got.dtype == torch.float32:
+        lim = torch.full_like(err, FA_F32_ATOL)
+    else:
+        a = flash_attention_ref(q.float(), k.float(), v.float().abs(), window=window,
+                                softcap=softcap)
+        lim = FA_BF16_RTOL * (ref.float().abs() + a)
+    return err.max().item(), (err / lim).max().item()
+
+
+def _flash_bound(q, k, window, dtype):
+    """Least time for a causal call: q, k, v, out once over the HBM rate,
+    or 4 * hd flops per attended (query, key) pair over the peak rate."""
+    B, H, Sq, hd = q.shape
+    K, Skv = k.shape[1], k.shape[2]
+    el = q.element_size()
+    nbytes = 2 * B * H * Sq * hd * el + 2 * B * K * Skv * hd * el
+    qpos = np.arange(Sq) + (Skv - Sq)
+    lo = np.maximum(qpos - (window if window is not None else 2**30) + 1, 0)
+    pairs = int(np.sum(qpos + 1 - lo))
+    return _bound(nbytes, 4 * B * H * pairs * hd, dtype)
+
+
+def prefill_kernel_checks(timer, gen, dev, summary, report):
+    """Flash attention and local stats against their plain versions."""
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.local_stats import local_stats_cuda
+    from repro_torch.kernels.ref import flash_attention_ref, local_stats_ref
+
+    def model_layout(dtype, B, H, K, Sq, Skv, hd):
+        """q, k, v as the model hands them over: (B, S, heads, hd) buffers
+        viewed as (B, heads, S, hd)."""
+        q = torch.randn(B, Sq, H, hd, generator=gen, device=dev).to(dtype).transpose(1, 2)
+        k, v = (torch.randn(B, Skv, K, hd, generator=gen, device=dev).to(dtype).transpose(1, 2)
+                for _ in range(2))
+        return q, k, v
+
+    # small shapes: window 32, softcap 30, Sq < Skv, K == H, every head_dim
+    small = [(2, 6, 2, 50, 77, 64, 32, None), (2, 4, 4, 70, 70, 64, None, 30.0),
+             (1, 8, 8, 100, 160, 128, 32, 30.0), (1, 2, 2, 33, 40, 256, 5, 12.0)]
+    serving = [(B, 32, 8, S, S, 128, None, None) for B in (1, 4) for S in (512, 200, 37)]
+    for dtype in (torch.float32, torch.bfloat16):
+        for label, cases in (("small", small), ("serving", serving)):
+            for B, H, K, Sq, Skv, hd, window, softcap in cases:
+                q, k, v = model_layout(dtype, B, H, K, Sq, Skv, hd)
+                got = flash_attention_cuda(q, k, v, window=window, softcap=softcap)
+                err, over = _flash_err(got, q, k, v, window, softcap)
+                check(bool(torch.isfinite(got).all()) and over <= 1.0,
+                      f"flash_attention {label} {dtype} B={B} H={H} K={K} Sq={Sq} Skv={Skv} "
+                      f"hd={hd} window={window} softcap={softcap}: err {err}, {over} of the limit")
+                row = dict(kernel="flash_attention", dtype=str(dtype), shape=label, B=B, H=H, K=K,
+                           Sq=Sq, Skv=Skv, hd=hd, window=window, softcap=softcap,
+                           max_abs_err=err, err_over_limit=over)
+                if label == "serving" and dtype is torch.bfloat16:
+                    row["ms"] = timer.ms(lambda: flash_attention_cuda(q, k, v))
+                    row["plain_ms"] = timer.ms(lambda: flash_attention_ref(q, k, v), iters=3)
+                    row["bound_ms"], row["bound_by"] = _flash_bound(q, k, None, dtype)
+                    qc, kc, vc = (t.contiguous() for t in (q, k, v))
+                    row["library_ms"] = timer.ms(
+                        lambda: torch.nn.functional.scaled_dot_product_attention(
+                            qc, kc, vc, is_causal=True, enable_gqa=True))
+                    if (B, Sq) == (4, 512):  # Engine.generate's prefill
+                        summary["flash_attention"] = dict(max_abs_err=err, **{
+                            k_: row[k_] for k_ in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                   "library_ms")})
+                report["checks"].append(row)
+
+    # local stats: the serving shapes of one prefill call (1 x 128 chunk,
+    # 4 x 512, 1 x 200 tokens by d_ff 14336), with and without a row mask
+    for dtype in (torch.float32, torch.bfloat16):
+        for T in (128, 2048, 200):
+            h = (torch.randn(T, 14336, generator=gen, device=dev) * 0.5).to(dtype)
+            mask = (torch.rand(T, generator=gen, device=dev) > 0.3).float()
+            for row_mask in (None, mask):
+                got = local_stats_cuda(h, row_mask)
+                ref = local_stats_ref(h, row_mask)
+                err = (got - ref).abs()
+                over = (err / (LS_RTOL * ref.abs() + LS_ATOL)).max().item()
+                repeat = bool(torch.equal(got, local_stats_cuda(h, row_mask)))
+                check(bool(torch.isfinite(got).all()) and over <= 1.0,
+                      f"local_stats {dtype} T={T} mask={row_mask is not None}: {over} of the limit")
+                check(repeat, f"local_stats {dtype} T={T}: two calls differ bitwise")
+                row = dict(kernel="local_stats", dtype=str(dtype), T=T, m=14336,
+                           row_mask=row_mask is not None, max_abs_err=err.max().item(),
+                           err_over_limit=over, repeat_bitwise=repeat)
+                if dtype is torch.bfloat16 and row_mask is None:
+                    row["ms"] = timer.ms(lambda: local_stats_cuda(h))
+                    row["plain_ms"] = timer.ms(lambda: local_stats_ref(h), iters=5)
+                    # h read once, out written once; ~4 f32 operations an element
+                    row["bound_ms"], row["bound_by"] = _bound(h.numel() * h.element_size()
+                                                              + 14336 * 4, 4 * h.numel(),
+                                                              torch.float32)
+                    row["library_ms"] = None  # no single PyTorch call computes it
+                    if T == 2048:  # Engine.generate's prefill
+                        summary["local_stats"] = dict(max_abs_err=row["max_abs_err"], **{
+                            k_: row[k_] for k_ in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                   "library_ms")})
+                report["checks"].append(row)
 
 
 def _sdpa_ms(timer, q, ck, cv, tab, clen):
@@ -382,8 +521,9 @@ def _serve(model, params, prior, prompts, max_new, glass, device="cuda", *, max_
 
 def _device_profile(run):
     """Device time by kernel over ``run()`` (torch.profiler, CUDA
-    activity): per-group and top-kernel sums, and the busy share of the
-    profiled wall time (a lower bound: the profiler slows the host)."""
+    activity): per-group and top-kernel sums, the number of device calls,
+    and the busy share of the profiled wall time (a lower bound: the
+    profiler slows the host)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -392,15 +532,18 @@ def _device_profile(run):
         run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    groups = {"paged_attention": "paged_attention_kernel", "glass_ffn_hidden": "hidden_kernel",
-              "glass_ffn_down": "down_kernel"}
-    by_group, kernels = {}, []
+    groups = {"paged_attention": ("paged_attention_kernel",),
+              "glass_ffn_hidden": ("hidden_kernel",), "glass_ffn_down": ("down_kernel",),
+              "flash_attention": ("flash_attention_kernel",),
+              "local_stats": ("row_norm_kernel", "col_partial_kernel", "col_final_kernel")}
+    by_group, kernels, calls = {}, [], 0
     for evt in prof.key_averages():
         if evt.device_type != DeviceType.CUDA:
             continue
+        calls += evt.count
         ms = evt.self_device_time_total / 1e3
         name = evt.key
-        group = next((g for g, tag in groups.items() if tag in name), None)
+        group = next((g for g, tags in groups.items() if any(t in name for t in tags)), None)
         if group is None:
             gemm = any(t in name.lower() for t in ("gemm", "gemv", "nvjet", "xmma", "cutlass"))
             group = "cublas_gemm" if gemm else "other"
@@ -409,14 +552,14 @@ def _device_profile(run):
     total = sum(by_group.values())
     kernels.sort(reverse=True)
     return {"wall_s": wall, "device_ms": total, "device_busy_share": total / 1e3 / wall,
-            "device_ms_by_group": by_group,
+            "device_calls": calls, "device_ms_by_group": by_group,
             "top_kernels": [dict(ms=k[0], calls=k[1], name=k[2]) for k in kernels[:10]]}
 
 
-def serve_phase():
+def llama_setup():
+    """Llama-3-8B at full width and depth, random bf16 weights and a random
+    prior from the seed, on the card."""
     from repro_torch.configs import get_config
-    from repro_torch.core import GlassConfig
-    from repro_torch.kernels import ops
     from repro_torch.models import build_model
 
     cfg = get_config("llama3-8b")
@@ -427,6 +570,146 @@ def serve_phase():
     init_s = time.perf_counter() - t0
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     prior = torch.rand(cfg.n_layers, cfg.d_ff, generator=gen, device="cuda")
+    return cfg, model, params, prior, init_s
+
+
+def _counted(fn):
+    """Run ``fn`` with every launch count set to 0 just before and read just
+    after; returns (its result, seconds, launch counts)."""
+    from repro_torch.kernels import ops
+
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, ops.launch_counts()
+
+
+def engine_phase(cfg, model, params, prior):
+    """The full-sequence prefill path: Engine and ContinuousEngine."""
+    from repro_torch.core import GlassConfig
+    from repro_torch.serve import ContinuousEngine, Engine, Request
+
+    L, V = cfg.n_layers, cfg.vocab_size
+    rs = np.random.RandomState(SEED + 2)
+    max_new = 32
+    batch = rs.randint(0, V, size=(4, 512)).astype(np.int32)
+    lens = [512, 384, 200, 37]
+    prompts = [rs.randint(0, V, n).astype(np.int32) for n in lens]
+    compact = dict(glass=GlassConfig(density=0.5), global_prior=prior, glass_mode="compact")
+    block = dict(glass=GlassConfig(density=0.5, selection="block", block_size=128),
+                 global_prior=prior, glass_mode="block_sparse")
+    report = {"phase": "engine", "model": cfg.name, "n_layers": L, "d_model": cfg.d_model,
+              "batch": list(batch.shape), "max_new": max_new, "continuous_prompt_lens": lens}
+    launches = dict.fromkeys(PREFILL_KERNELS, 0)
+
+    def expect(counts, what, prefills, **extra):
+        """Exactly one launch of each prefill kernel per layer per prefill
+        call, and what ``extra`` names; nothing else."""
+        want = {k: 0 for k in counts}
+        want.update(flash_attention=L * prefills, local_stats=L * prefills, **extra)
+        check(counts == want, f"{what}: launches {counts}, expected {want}")
+        for k in PREFILL_KERNELS:
+            launches[k] += counts[k]
+
+    Engine(model, params, **compact).generate(batch[:1, :64], 2)  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    toks = torch.as_tensor(batch, dtype=torch.int64, device="cuda")
+    _, t_pre, n = _counted(lambda: model.prefill(params, {"tokens": toks}, 512 + max_new))
+    expect(n, "Model.prefill", 1)
+    report["prefill_tok_s"] = batch.size / t_pre
+    results = {}
+    for name, kw in (("compact", compact), ("block_sparse", block)):
+        eng = Engine(model, params, **kw)
+        first, t1, n1 = _counted(lambda: eng.generate(batch, 1))
+        expect(n1, f"Engine {name} max_new=1", 1)
+        res, t, n = _counted(lambda: eng.generate(batch, max_new))
+        rows_ffn = {"glass_ffn": L * (max_new - 1)} if name == "block_sparse" else {}
+        expect(n, f"Engine {name}", 1, **rows_ffn)
+        in_vocab = bool(((res.tokens >= 0) & (res.tokens < V)).all())
+        check(res.tokens.shape == (4, max_new) and in_vocab, f"Engine {name}: tokens {res.tokens}")
+        check(np.array_equal(first.tokens[:, 0], res.tokens[:, 0]),
+              f"Engine {name}: the first token depends on max_new")
+        results[name] = res.tokens
+        report[f"engine_{name}"] = dict(
+            wall_s=t, launches=n, generate_max_new_1_s=t1,
+            decode_tok_s=batch.shape[0] * (max_new - 1) / (t - t1))
+        del eng
+
+    ceng = ContinuousEngine(model, params, max_slots=2, max_len=512 + max_new, **compact)
+    for i, p in enumerate(prompts):
+        ceng.submit(Request(uid=i, prompt=p, max_new=max_new))
+
+    def drain():
+        done, times = {}, {"admit": [0.0, 0], "decode": [0.0, 0]}
+        while ceng._work_remaining():
+            queued, steps0 = len(ceng.scheduler), ceng.slot_steps
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for f in ceng.step():
+                done[f.uid] = f
+            torch.cuda.synchronize()
+            kind = "admit" if len(ceng.scheduler) < queued else "decode"
+            times[kind][0] += time.perf_counter() - t0
+            times[kind][1] += ceng.slot_steps - steps0
+            check(ceng.t < 10_000, "ContinuousEngine did not drain")
+        return done, times
+
+    (done, times), t_c, n = _counted(drain)
+    expect(n, "ContinuousEngine", len(prompts))
+    check(sorted(done) == list(range(len(prompts))), f"not every request finished: {sorted(done)}")
+    check(all(len(done[u].tokens) == max_new for u in done), "a request stopped short")
+    check(ceng.pool.n_free == 2 and not ceng.pool.active.any(), "slots still held after the drain")
+    report["continuous"] = dict(wall_s=t_c, launches=n, t=ceng.t, slot_steps=ceng.slot_steps,
+                                decode_tok_s=times["decode"][1] / max(times["decode"][0], 1e-9),
+                                step_seconds={k: v[0] for k, v in times.items()},
+                                step_tokens={k: v[1] for k, v in times.items()})
+    del ceng
+    report["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
+
+    # each request alone: Engine.generate's first token, and the kernel
+    # path's last-prompt logits against the gather-attention chunked prefill
+    ref_eng = Engine(model, params, **compact)
+    rel, argmax_equal, first_equal, prefill_s = {}, {}, {}, {}
+    for i, p in enumerate(prompts):
+        alone = ref_eng.generate(p[None], 1).tokens[0, 0]
+        first_equal[i] = bool(alone == done[i].tokens[0])
+        tk = torch.as_tensor(p, dtype=torch.int64, device="cuda")[None]
+        (lg, _, _), prefill_s[i], _ = _counted(
+            lambda: model.prefill(params, {"tokens": tk}, len(p)))
+        nb = -(-len(p) // 16)
+        shape = (L, nb + 1, 16, cfg.n_kv_heads, cfg.head_dim)
+        cache = {k: torch.zeros(shape, dtype=cfg.compute_dtype, device="cuda") for k in "kv"}
+        tab = torch.arange(1, nb + 1, dtype=torch.int32, device="cuda")[None]
+        ref, _, _ = model.prefill_chunk(params, tk, cache, torch.zeros(1, dtype=torch.int32,
+                                                                        device="cuda"),
+                                        block_table=tab, attn_mode="gather")
+        a, b = lg[0, -1].float(), ref[0, -1].float()
+        rel[i] = ((a - b).norm() / b.norm()).item()
+        argmax_equal[i] = bool(a.argmax() == b.argmax())
+        del cache, ref, lg
+    report.update(first_token_equals_engine_alone=first_equal,
+                  last_prompt_logits_rel_l2=rel, prefill_logits_rel_tol=PREFILL_LOGITS_REL_TOL,
+                  last_prompt_argmax_equal=argmax_equal,
+                  prefill_alone_tok_s={lens[i]: lens[i] / t for i, t in prefill_s.items()})
+    report["profile"] = _device_profile(
+        lambda: Engine(model, params, **compact).generate(batch, max_new))
+    report["card"] = nvidia_smi_line()
+    emit(report)
+    check(all(first_equal.values()),
+          f"ContinuousEngine first tokens != Engine alone: {first_equal}")
+    rels = sorted(rel.values())
+    check(float(np.median(rels)) <= PREFILL_LOGITS_REL_TOL["median"]
+          and rels[-1] <= PREFILL_LOGITS_REL_TOL["max"],
+          f"last-prompt logits differ from the gather path beyond {PREFILL_LOGITS_REL_TOL}: {rel}")
+    return launches
+
+
+def serve_phase(cfg, model, params, prior, init_s):
+    from repro_torch.core import GlassConfig
+    from repro_torch.kernels import ops
+
     rs = np.random.RandomState(SEED)
     lens = [512, 512, 384, 256, 200, 128]
     prompts = [rs.randint(0, cfg.vocab_size, n).astype(np.int32) for n in lens]
@@ -444,7 +727,11 @@ def serve_phase():
     peak = torch.cuda.max_memory_allocated()
     check(sorted(done) == list(range(len(prompts))), f"not every request finished: {sorted(done)}")
     check(all(len(done[u].tokens) == max_new for u in done), "a request stopped short")
-    check(all(n > 0 for n in launches.values()), f"a kernel never launched: {launches}")
+    chunks = sum(-(-n // 128) for n in lens)
+    check(all(launches[k] > 0 for k in SERVE_KERNELS), f"a kernel never launched: {launches}")
+    check(launches["local_stats"] == cfg.n_layers * chunks and launches["flash_attention"] == 0,
+          f"prefill kernels: {launches}, expected local stats once per layer and chunk "
+          f"({chunks} chunks) and no flash attention")
     check(eng.pool.allocator.n_live == 0, "blocks still live after the drain")
     shared_equal = bool(np.array_equal(done[0].tokens, done[1].tokens))
     grouped = eng.grouped_rows
@@ -453,7 +740,8 @@ def serve_phase():
     ops.reset_launch_counts()
     ref_eng, ref_done, ref_first, _, ref_wall = _serve(model, params, prior, prompts, max_new, glass,
                                                        glass_mode="masked", attn_mode="gather")
-    check(sum(ops.launch_counts().values()) == 0, "the plain path launched a kernel")
+    check(all(ops.launch_counts()[k] == 0 for k in SERVE_KERNELS),
+          f"the plain path launched a decode kernel: {ops.launch_counts()}")
     del ref_eng
     profile = _device_profile(lambda: _serve(model, params, prior, prompts, max_new, glass, **fast))
     rel = {u: ((first[u] - ref_first[u]).norm() / ref_first[u].norm()).item() for u in first}
@@ -505,7 +793,11 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     env_phase()
     summary = kernels_phase(Timer("cuda"))
-    launches = serve_phase()
+    cfg, model, params, prior, init_s = llama_setup()
+    launches = engine_phase(cfg, model, params, prior)
+    for k, n in serve_phase(cfg, model, params, prior, init_s).items():
+        launches[k] = launches.get(k, 0) + n
+    check(all(launches[name] > 0 for name in KERNELS), f"a kernel never launched: {launches}")
     emit({"kernels": [
         dict(name=name, route="cuda", launches=launches[name], **KERNELS[name], **summary[name])
         for name in KERNELS

@@ -1,7 +1,7 @@
 from .fusion import GlassConfig, glass_scores, ranks_ascending, select
-from .glass import GlassParams, MaskSet, build_masks
+from .glass import GlassParams, MaskSet, build_masks, compact_params
 
 __all__ = [
-    "GlassConfig", "GlassParams", "MaskSet", "build_masks", "glass_scores",
+    "GlassConfig", "GlassParams", "MaskSet", "build_masks", "compact_params", "glass_scores",
     "ranks_ascending", "select",
 ]

@@ -8,8 +8,10 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 
+from ..models.ffn import compact_ffn_params
 from . import importance
 from .fusion import GlassConfig, glass_scores, select
 
@@ -70,3 +72,29 @@ def build_masks(
     if slot_axis:
         idx, mask, scores = (t.transpose(0, 1).contiguous() for t in (idx, mask, scores))
     return MaskSet(idx=idx, mask=mask, scores=scores)
+
+
+def compact_params(model, params, idx: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """One-time gather of the selected units into compact decode weights:
+    the ``compact_layers`` tree that ``model.decode_step`` takes.  idx
+    (L, k) shared gives w_up (L, d, k), w_down (L, k, d) [, w_gate]; a
+    per-slot idx (L, B, k) from ``build_masks(..., slot_axis=True)`` gives
+    the same leaves with the slot axis after L.  Dense family only."""
+    cfg = model.cfg
+    if cfg.family != "dense" or cfg.sandwich_norms:
+        raise NotImplementedError(
+            f"family={cfg.family!r}: compact weights cover the dense family only "
+            "(ROADMAP Queue 1 item 8)"
+        )
+    if idx.ndim not in (2, 3):
+        raise ValueError(f"idx must be (L, k) or (L, B, k), got {tuple(idx.shape)}")
+    ffn = params["layers"]["ffn"]
+    out = None
+    for pos in np.ndindex(*idx.shape[:-1]):  # (l,) or (l, slot), gathered one at a time
+        rows = compact_ffn_params({n: w[pos[0]] for n, w in ffn.items()}, idx[pos])
+        if out is None:  # preallocated: no stacked copy of the compact weights
+            out = {n: torch.empty(tuple(idx.shape[:-1]) + tuple(t.shape), dtype=t.dtype,
+                                  device=t.device) for n, t in rows.items()}
+        for n, t in rows.items():
+            out[n][pos] = t
+    return out

@@ -1,3 +1,3 @@
-from .ops import glass_ffn, glass_ffn_rowwise, paged_attention
+from .ops import flash_attention, glass_ffn, glass_ffn_rowwise, local_stats, paged_attention
 
-__all__ = ["glass_ffn", "glass_ffn_rowwise", "paged_attention"]
+__all__ = ["flash_attention", "glass_ffn", "glass_ffn_rowwise", "local_stats", "paged_attention"]

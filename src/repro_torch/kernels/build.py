@@ -26,7 +26,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
-KERNEL_SOURCES = ("paged_attention", "glass_ffn")
+KERNEL_SOURCES = ("paged_attention", "glass_ffn", "flash_attention", "local_stats")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -78,7 +78,7 @@ def build(names: Iterable[str] = KERNEL_SOURCES) -> Dict[str, str]:
 def load(name: str, signatures: Dict[str, Sequence]) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built if needed, with
     ``argtypes`` set from ``signatures`` ({symbol: argtypes}; every entry
-    returns a C int, the cudaError_t of its launches)."""
+    returns a C int: the cudaError_t of its launches, or a size)."""
     lib = _loaded.get(name)
     if lib is None:
         build([name])

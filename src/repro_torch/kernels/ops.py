@@ -1,4 +1,4 @@
-"""Public entry points for the serving path's kernels.
+"""Public entry points for the port's kernels.
 
 A tensor on the CPU goes to the kernel's plain version; a tensor on a CUDA
 device goes to the hand-written kernel, with no fallback: a kernel that
@@ -14,18 +14,28 @@ from typing import Dict, Optional
 
 import torch
 
+from .flash_attention import flash_attention_cuda
 from .glass_ffn import glass_ffn_cuda, glass_ffn_rowwise_cuda
+from .local_stats import local_stats_cuda
 from .paged_attention import paged_attention_cuda
-from .ref import glass_ffn_ref, glass_ffn_rowwise_ref, paged_attention_ref
+from .ref import (
+    flash_attention_ref,
+    glass_ffn_ref,
+    glass_ffn_rowwise_ref,
+    local_stats_ref,
+    paged_attention_ref,
+)
 
 _WRAPPERS = {
     "paged_attention": paged_attention_cuda,
     "glass_ffn": glass_ffn_cuda,
     "glass_ffn_rowwise": glass_ffn_rowwise_cuda,
+    "flash_attention": flash_attention_cuda,
+    "local_stats": local_stats_cuda,
 }
 
 
-def _on_card(t: torch.Tensor) -> bool:
+def on_card(t: torch.Tensor) -> bool:
     if t.is_cuda:
         return True
     if t.device.type == "cpu":
@@ -40,7 +50,7 @@ def paged_attention(
     """Fused paged attention: block-table gather + online-softmax attention
     in one pass; the caller scatters the new k/v rows first.  ``window`` is
     an int (2**30 for global layers)."""
-    fn = paged_attention_cuda if _on_card(q) else paged_attention_ref
+    fn = paged_attention_cuda if on_card(q) else paged_attention_ref
     return fn(q, cache_k, cache_v, block_table, cache_len, window, softcap=softcap, scale=scale)
 
 
@@ -49,7 +59,7 @@ def glass_ffn(
 ) -> torch.Tensor:
     """Block-sparse GLASS FFN over one shared block list: only the active
     weight tiles are read.  Returns (B, d) f32."""
-    fn = glass_ffn_cuda if _on_card(x) else glass_ffn_ref
+    fn = glass_ffn_cuda if on_card(x) else glass_ffn_ref
     return fn(x, w_up, w_down, block_idx, w_gate, block_scale=block_scale, act=act,
               block_size=block_size)
 
@@ -59,9 +69,26 @@ def glass_ffn_rowwise(
 ) -> torch.Tensor:
     """Per-row block-sparse GLASS FFN: block_idx (B, nb_keep), one list per
     serving slot.  Returns (B, d) f32."""
-    fn = glass_ffn_rowwise_cuda if _on_card(x) else glass_ffn_rowwise_ref
+    fn = glass_ffn_rowwise_cuda if on_card(x) else glass_ffn_rowwise_ref
     return fn(x, w_up, w_down, block_idx, w_gate, block_scale=block_scale, act=act,
               block_size=block_size)
+
+
+def flash_attention(
+    q, k, v, *, causal: bool = True, window: Optional[int] = None,
+    softcap: Optional[float] = None, scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Full-sequence attention with ends aligned: q (B, H, Sq, hd), k and v
+    (B, K, Skv, hd) with H % K == 0.  Returns (B, H, Sq, hd)."""
+    fn = flash_attention_cuda if on_card(q) else flash_attention_ref
+    return fn(q, k, v, causal=causal, window=window, softcap=softcap, scale=scale)
+
+
+def local_stats(h, row_mask=None) -> torch.Tensor:
+    """GLASS local-importance sum over rows of |h_t| / ||h_t||_2, each row
+    times ``row_mask`` when given: h (T, m) -> (m,) f32."""
+    fn = local_stats_cuda if on_card(h) else local_stats_ref
+    return fn(h, row_mask)
 
 
 def launch_counts() -> Dict[str, int]:

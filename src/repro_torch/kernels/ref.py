@@ -1,9 +1,9 @@
-"""Plain PyTorch versions of the serving path's kernels.
+"""Plain PyTorch versions of the port's kernels.
 
 They compute what the CUDA kernels compute, with the same rounding points
 (f32 scores and accumulators; attention probabilities rounded to V's
 dtype before the PV product; the GLASS hidden vector rounded to the
-weight dtype before the down projection).  ``kernels/ops.py`` sends CPU
+weight dtype before the down projection; stat sums in f32).  ``kernels/ops.py`` sends CPU
 tensors here; on the card only ``chip_smoke.py`` calls them, to hold the
 kernels against them.
 """
@@ -16,6 +16,7 @@ import torch
 from ..models.common import activation
 
 NEG = -2.0e38
+STATS_EPS = 1e-6
 
 
 def paged_attention_ref(
@@ -115,3 +116,50 @@ def glass_ffn_rowwise_ref(
         for b in range(x.shape[0])
     ]
     return torch.cat(rows, dim=0)
+
+
+def flash_attention_ref(
+    q: torch.Tensor,  # (B, H, Sq, hd)
+    k: torch.Tensor,  # (B, K, Skv, hd), H % K == 0: query head h reads kv head h // (H // K)
+    v: torch.Tensor,  # (B, K, Skv, hd)
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    softcap: Optional[float] = None,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Full-sequence attention with the ends aligned: query i sits at
+    position ``i + Skv - Sq``.  Causal and window masks, optional tanh
+    softcap before the mask, softmax in f32, normalized probabilities
+    rounded to V's dtype before the PV product.  Returns (B, H, Sq, hd) in
+    q's dtype.  With K == H this is ``repro/kernels/ref.py:flash_attention_ref``."""
+    B, H, Sq, hd = q.shape
+    K, Skv = k.shape[1], k.shape[2]
+    if H % K or Sq > Skv:
+        raise ValueError(f"need H % K == 0 and Sq <= Skv, got H={H}, K={K}, Sq={Sq}, Skv={Skv}")
+    scale = scale if scale is not None else hd**-0.5
+    qg = q.reshape(B, K, H // K, Sq, hd)
+    s = torch.einsum("bkgqd,bktd->bkgqt", qg.float(), k.float()) * scale
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
+    qpos = torch.arange(Sq, device=q.device)[:, None] + (Skv - Sq)
+    kpos = torch.arange(Skv, device=q.device)[None, :]
+    mask = torch.ones(Sq, Skv, dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= qpos >= kpos
+    if window is not None:
+        mask &= (qpos - kpos) < window
+    p = torch.softmax(torch.where(mask, s, NEG), dim=-1)
+    out = torch.einsum("bkgqt,bktd->bkgqd", p.to(v.dtype).float(), v.float())
+    return out.reshape(B, H, Sq, hd).to(q.dtype)
+
+
+def local_stats_ref(h: torch.Tensor, row_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """sum over rows of |h_t| / (||h_t||_2 + 1e-6), each row times its
+    ``row_mask`` entry when one is given: (T, m) -> (m,) f32."""
+    h32 = h.float()
+    nrm = torch.sqrt(torch.sum(torch.square(h32), dim=-1, keepdim=True))
+    a = torch.abs(h32) / (nrm + STATS_EPS)
+    if row_mask is not None:
+        a = a * row_mask.float()[:, None]
+    return torch.sum(a, dim=0)

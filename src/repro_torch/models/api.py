@@ -1,4 +1,6 @@
-"""Uniform model API (the dense family's part of ``repro``'s ``Model``)."""
+"""Uniform model API (the dense family's part of ``repro``'s ``Model``):
+full-sequence logits, prefill into a contiguous cache, chunked prefill
+into a paged cache, and one decode step over either."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -6,7 +8,8 @@ from dataclasses import dataclass
 import torch
 
 from . import transformer
-from .common import ModelConfig
+from .attention import init_cache as _init_kv_cache
+from .common import ModelConfig, resolve_device
 
 
 @dataclass(frozen=True)
@@ -18,6 +21,29 @@ class Model:
         from ..params import init_params
 
         return init_params(self.cfg, seed, device)
+
+    def logits(self, params, batch, **kw) -> torch.Tensor:
+        """Full-sequence logits of ``batch["tokens"]`` (B, S)."""
+        out, _, _, _ = transformer.forward(params, batch["tokens"], self.cfg, **kw)
+        return out
+
+    def logits_with_stats(self, params, batch):
+        """Returns (logits, stats): stats are per-layer |h|/||h||_2 sums."""
+        out, _, stats, _ = transformer.forward(params, batch["tokens"], self.cfg,
+                                               collect_stats=True)
+        return out, stats
+
+    def prefill(self, params, inputs, max_len: int):
+        """inputs {"tokens": (B, S)}.  Returns (logits (B,S,V), contiguous
+        cache {"k","v": (L, B, max_len, K, hd)}, local stat sums)."""
+        return transformer.dense_prefill(params, inputs["tokens"], self.cfg, max_len)
+
+    def init_cache(self, batch: int, max_len: int, device="cuda"):
+        """A zero contiguous cache {"k","v": (L, batch, max_len, K, hd)}."""
+        cfg = self.cfg
+        transformer._check_dense(cfg)
+        return _init_kv_cache(cfg, batch, max_len, cfg.n_layers, cfg.compute_dtype,
+                              device=resolve_device(device))
 
     def prefill_chunk(
         self,
@@ -39,8 +65,8 @@ class Model:
         self,
         params,
         token: torch.Tensor,  # (B, 1)
-        cache,
-        cache_len: torch.Tensor,  # (B,) per-slot lengths
+        cache,  # contiguous {"k","v": (L, B, S_max, K, hd)}, or paged with a block_table
+        cache_len,  # int for every row, or (B,) per-slot lengths
         *,
         ffn_masks=None,
         compact_layers=None,

@@ -5,7 +5,8 @@
     y = h @ w_down
 
   * ``mask``  — multiplier applied to h (neuron-level masking);
-  * ``stats`` — running sum of |h|/||h||_2 over tokens (the local signal).
+  * ``stats`` — running sum of |h|/||h||_2 over tokens (the local signal);
+  * ``compact_ffn_params`` — the selected units gathered into narrow weights.
 """
 from __future__ import annotations
 
@@ -13,9 +14,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..kernels import ops
 from .common import ModelConfig, activation
-
-STATS_EPS = 1e-6
 
 
 def ffn_hidden(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -34,21 +34,33 @@ def ffn_forward(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
     return h @ p["w_down"]
 
 
-def token_normalized_abs(h: torch.Tensor) -> torch.Tensor:
-    """|h|/(||h||_2 + eps) per token, f32. h (..., m) -> same shape f32."""
-    h32 = h.float()
-    nrm = torch.sqrt(torch.sum(torch.square(h32), dim=-1, keepdim=True))
-    return torch.abs(h32) / (nrm + STATS_EPS)
-
-
-def ffn_forward_with_stats(p: dict, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor, dict]:
+def ffn_forward_with_stats(
+    p: dict, x: torch.Tensor, cfg: ModelConfig, *, token_mask: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, dict]:
     """Forward pass that also emits GLASS local-importance sums:
     {"sum_abs": (m,) f32 sum over tokens of |h|/||h||_2, "count": () f32}.
-    (The JAX package's ``token_mask`` for padded batches has no caller on
-    the paged path.)"""
+    ``token_mask`` (the leading axes of x; 1.0 valid, 0.0 pad) restricts
+    both to the valid tokens.  The sums go through the local-stats kernel
+    (``kernels/ops.py``) on a CUDA device."""
     h = ffn_hidden(p, x, cfg)
-    a = token_normalized_abs(h)
-    count = torch.tensor(float(h.numel() // h.shape[-1]), dtype=torch.float32, device=h.device)
-    sum_abs = torch.sum(a.reshape(-1, a.shape[-1]), dim=0)
+    m = h.shape[-1]
+    row_mask = None
+    if token_mask is not None:
+        row_mask = token_mask.float().reshape(-1)
+        count = torch.sum(row_mask)
+    else:
+        count = torch.tensor(float(h.numel() // m), dtype=torch.float32, device=h.device)
+    sum_abs = ops.local_stats(h.reshape(-1, m), row_mask)
     y = h @ p["w_down"]
     return y, {"sum_abs": sum_abs, "count": count}
+
+
+def compact_ffn_params(p: dict, idx: torch.Tensor) -> dict:
+    """Gather the k selected hidden units into compact weights: idx (k,)
+    int, the columns of w_up/w_gate and the rows of w_down.  Decode then
+    runs dense matmuls of width k."""
+    idx = idx.long()
+    out = {"w_up": p["w_up"][:, idx], "w_down": p["w_down"][idx]}
+    if "w_gate" in p:
+        out["w_gate"] = p["w_gate"][:, idx]
+    return out

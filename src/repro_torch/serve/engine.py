@@ -1,60 +1,195 @@
-"""Paged continuous-batching engine with GLASS decode (dense family).
+"""Serving engines with GLASS decode (dense family).
 
-The port of ``repro/serve/engine.py:PagedEngine`` on the path the paper's
-serving loop runs: a :class:`BlockPool` block table, prompts prefilled in
-chunks of at most ``chunk_tokens`` interleaved with decode ticks (GLASS
-local stats accumulate across chunks; the fused mask is built at the final
-chunk), FIFO admission with each request's full KV need reserved at
-admission (``alloc_mode="full"``), and greedy decode of the fixed
-``max_slots`` batch through the block table:
+``Engine`` — static batch: every request arrives together, shares one
+prompt length and finishes together; one mask set is built from the whole
+batch's prefill stats.  The JAX package's baseline and offline-eval engine,
+and the parity oracle of the queue-driven engines.
 
-  * ``glass_mode="block_sparse"`` feeds each slot's active block list to the
-    GLASS FFN kernels; rows whose lists coincide batch through the
-    shared-list kernel, the rest through the rowwise kernel;
-  * ``glass_mode="masked"`` multiplies each slot's unit mask into h;
-  * ``attn_mode="paged_pallas"`` runs the paged-attention kernel,
-    ``"gather"`` the dense gather + softmax.
+``ContinuousEngine`` — continuous batching over a :class:`KVPool` slot
+arena: each request is prefilled alone at its exact length
+(``Model.prefill``, the flash-attention and local-stats kernels on the
+card), owns per-slot GLASS rows, and decodes in the fixed ``max_slots``
+batch over the contiguous cache; up to ``decode_chunk`` ticks run between
+admission checks (``_horizon``), as in the JAX engine.
 
-Decode runs one tick per :meth:`step` (the JAX engine fuses up to
-``decode_chunk`` ticks into one program; the token streams are the same).
-Options of the JAX engine outside this path raise ``NotImplementedError``
-naming the ROADMAP item that ports them.
+``PagedEngine`` — the port of ``repro/serve/engine.py:PagedEngine`` on the
+path the paper's serving loop runs: a :class:`BlockPool` block table,
+prompts prefilled in chunks of at most ``chunk_tokens`` interleaved with
+decode ticks (GLASS local stats accumulate across chunks; the fused mask
+is built at the final chunk), FIFO admission with each request's full KV
+need reserved at admission (``alloc_mode="full"``), and greedy decode of
+the fixed ``max_slots`` batch through the block table; ``attn_mode=
+"paged_pallas"`` runs the paged-attention kernel, ``"gather"`` the dense
+gather + softmax.  Decode runs one tick per :meth:`PagedEngine.step` (the
+JAX engine fuses up to ``decode_chunk`` ticks into one program; the token
+streams are the same).
+
+GLASS modes (``glass=None`` serves dense): ``"compact"`` gathers the
+selected units into narrow FFN weights (not in ``PagedEngine`` yet);
+``"masked"`` multiplies the unit mask into h; ``"block_sparse"`` (with
+``selection="block"``) feeds the active block lists to the GLASS FFN
+kernels — one shared list through the shared-list kernel, per-slot lists
+through the rowwise kernel, and, in ``PagedEngine``, rows whose lists
+coincide batched through the shared-list kernel.
+
+All three are greedy.  Options of the JAX engines outside the port raise
+``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 from __future__ import annotations
 
 import itertools
+from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..core.fusion import GlassConfig, merge_stat_sums
-from ..core.glass import GlassParams, build_masks
+from ..core.glass import GlassParams, build_masks, compact_params
 from ..models.api import Model
 from ..models.common import resolve_device
-from .kv_pool import BlockPool, pow2_bucket
+from .kv_pool import BlockPool, KVPool, pow2_bucket
 from .lifecycle import Lifecycle, LiveRequest, ReqState
 from .sampling import SamplingParams
-from .scheduler import AdmissionPolicy, Request, RequestOutput, Scheduler
+from .scheduler import AdmissionPolicy, FinishedRequest, Request, RequestOutput, Scheduler
+
+_SAMPLING_TODO = "sampled decoding is ROADMAP Queue 1 item 2; the port is greedy"
+
+
+def _check_glass_args(model: Model, glass: Optional[GlassConfig], global_prior, glass_mode: str):
+    """The validation the JAX engines share: a prior with GLASS, block
+    selection exactly where the mode needs block ids, the dense family."""
+    if model.cfg.family != "dense":
+        raise NotImplementedError(
+            f"family={model.cfg.family!r}: the port serves the dense family only "
+            "(ROADMAP Queue 1 item 8)"
+        )
+    if glass_mode not in ("compact", "masked", "block_sparse"):
+        raise ValueError(f"unknown glass_mode {glass_mode!r}")
+    if glass is None:
+        return
+    if global_prior is None:
+        raise ValueError("GLASS needs the offline prior (global_prior)")
+    if glass_mode == "block_sparse" and glass.selection != "block":
+        raise ValueError(
+            "block_sparse mode needs GlassConfig(selection='block'); "
+            "pass glass_mode='masked' for another selection"
+        )
+    if glass_mode == "compact" and glass.selection == "block":
+        raise ValueError(
+            "block selection yields block ids, not unit indices — "
+            "use glass_mode='masked' or 'block_sparse' with it"
+        )
+
+
+def _check_on_device(device: torch.device, params, global_prior) -> None:
+    if any(t.device != device for t in _leaves(params)):
+        raise ValueError(f"params must live on the engine's device {device}")
+    if global_prior is not None and global_prior.device != device:
+        raise ValueError(f"global_prior must live on the engine's device {device}")
+
+
+@dataclass
+class GenerationResult:
+    tokens: np.ndarray  # (B, max_new) int32
+    logits_seq: Optional[np.ndarray]  # (B, max_new, V) f32 when requested
+    masks: Optional[object]  # the batch's MaskSet under GLASS
+
+
+class Engine:
+    """Static-batch greedy generation.  ``generate`` prefills the batch
+    (``Model.prefill``), builds one GLASS mask set from the batch's stats,
+    and decodes ``max_new`` tokens over the contiguous cache.
+
+    The JAX engine keeps a jit cache that it drops when ``params`` is
+    rebound; the port runs eagerly, so ``params`` is a plain attribute."""
+
+    def __init__(
+        self,
+        model: Model,
+        params,
+        *,
+        glass: Optional[GlassConfig] = None,
+        global_prior=None,
+        glass_mode: str = "compact",  # compact | masked | block_sparse
+        device="cuda",
+    ):
+        _check_glass_args(model, glass, global_prior, glass_mode)
+        self.device = resolve_device(device)
+        _check_on_device(self.device, params, global_prior)
+        self.model = model
+        self.params = params
+        self.glass = glass
+        self.prior = global_prior
+        self.glass_mode = glass_mode
+
+    def generate(
+        self,
+        prompts,  # (B, S) int token ids, one length for the batch
+        max_new: int,
+        *,
+        rng=None,
+        temperature: float = 0.0,
+        top_k: int = 0,
+        return_logits: bool = False,
+    ) -> GenerationResult:
+        """Greedy: ``tokens[:, 0]`` is the argmax of the prefill's last
+        logits, each later token the argmax of the decode step fed the one
+        before.  ``logits_seq[:, i]`` are the logits of the decode step fed
+        ``tokens[:, i]`` (as float32)."""
+        if temperature > 0.0 or top_k != 0 or rng is not None:
+            raise NotImplementedError(_SAMPLING_TODO)
+        if max_new < 1:
+            raise ValueError(f"max_new must be >= 1, got {max_new}")
+        model, params = self.model, self.params
+        toks = torch.as_tensor(np.asarray(prompts), dtype=torch.int64, device=self.device)
+        B, S = toks.shape
+        logits, cache, stats = model.prefill(params, {"tokens": toks}, S + max_new)
+        masks = None
+        kw = {}
+        if self.glass is not None:
+            masks = build_masks(stats, self.prior, self.glass)
+            if self.glass_mode == "compact":
+                kw["compact_layers"] = compact_params(model, params, masks.idx)
+            elif self.glass_mode == "block_sparse":
+                kw.update(ffn_block_idx=masks.idx, ffn_block_size=self.glass.block_size)
+            else:
+                kw["ffn_masks"] = masks.mask
+        tok = torch.argmax(logits[:, -1].float(), dim=-1)
+        out, lgs = [tok], []
+        # the write position lives on the device: no host-to-device copy
+        # (which waits for the stream) in the decode loop
+        pos = torch.full((), S, dtype=torch.int64, device=self.device)
+        # the JAX engine runs max_new steps and drops the last token; the
+        # last step only matters for its logits
+        for _ in range(max_new if return_logits else max_new - 1):
+            lg, cache = model.decode_step(params, tok[:, None], cache, pos, **kw)
+            pos = pos + 1
+            tok = torch.argmax(lg[:, -1].float(), dim=-1)
+            out.append(tok)
+            if return_logits:
+                lgs.append(lg[:, -1].float())
+        return GenerationResult(
+            tokens=torch.stack(out[:max_new], dim=1).cpu().numpy().astype(np.int32),
+            logits_seq=torch.stack(lgs, dim=1).cpu().numpy() if return_logits else None,
+            masks=masks,
+        )
 
 
 class GlassSlotState:
-    """Per-slot GLASS rows for the paged engine: ``masked`` keeps a float
-    mask arena (L, max_slots, m); ``block_sparse`` keeps the active block
-    ids and their f32 tile scales, (L, max_slots, nb_keep) each.  The arena
-    is created on the first admission (that fixes its shapes); a cleared
-    row (zero mask, zero scales on block 0) contributes exactly zero."""
+    """Per-slot GLASS rows of the queue-driven engines: ``masked`` keeps a
+    float mask arena (L, max_slots, m); ``compact`` the gathered FFN
+    weights, w_up (L, max_slots, d, k) and the rest; ``block_sparse`` the
+    active block ids and their f32 tile scales, (L, max_slots, nb_keep)
+    each.  The arena is created on the first admission (that fixes its
+    shapes); a cleared row (zero mask, zero weights, zero scales on block
+    0) contributes exactly zero."""
 
-    def __init__(self, gcfg: GlassConfig, prior: torch.Tensor, mode: str, max_slots: int):
-        if mode == "compact":
-            raise NotImplementedError("glass_mode='compact' is ROADMAP Queue 1 item 6")
-        if mode not in ("masked", "block_sparse"):
-            raise ValueError(mode)
-        if mode == "block_sparse" and gcfg.selection != "block":
-            raise ValueError(
-                "block_sparse mode (the default) needs GlassConfig(selection='block'); "
-                "pass glass_mode='masked' for another selection"
-            )
+    def __init__(self, model: Model, params, gcfg: GlassConfig, prior: torch.Tensor, mode: str,
+                 max_slots: int):
+        _check_glass_args(model, gcfg, prior, mode)
+        self.model = model
+        self.params = params
         self.gcfg = gcfg
         self.prior = prior
         self.mode = mode
@@ -66,6 +201,8 @@ class GlassSlotState:
         ms = build_masks(stacked, self.prior, self.gcfg, slot_axis=True)
         if self.mode == "masked":
             return {"mask": ms.mask}  # (L, R, m)
+        if self.mode == "compact":
+            return compact_params(self.model, self.params, ms.idx)  # w_up (L, R, d, k), ...
         # all-ones scales: 1.0 * tile is bitwise the unscaled tile
         return {"idx": ms.idx, "scale": torch.ones(ms.idx.shape, device=ms.idx.device)}
 
@@ -90,7 +227,191 @@ class GlassSlotState:
                 a[:, slot] = 0
 
 
-class PagedEngine:
+class _QueueEngineBase:
+    """Host-side plumbing the queue-driven engines share: submission and
+    the drain loop.  Subclasses provide ``step()`` and ``_drain_budget()``
+    (a safe bound on the ticks that drain the current workload)."""
+
+    def submit(self, req: Request) -> None:
+        self.scheduler.submit(req)
+
+    @property
+    def n_active(self) -> int:
+        return int(self.pool.active.sum())
+
+    def _inflight_requests(self) -> List[Request]:
+        return [r for r in self.live if r is not None]
+
+    def _work_remaining(self) -> bool:
+        return bool(len(self.scheduler) or self.pool.active.any())
+
+    def run(self, requests=(), max_steps: Optional[int] = None) -> Dict[int, object]:
+        """Submit ``requests`` (:class:`Request` objects) and serve until the
+        queue and the slots drain; returns {uid: final output}
+        (:class:`FinishedRequest`, or the final :class:`RequestOutput` of
+        the streaming paged engine)."""
+        for r in requests:
+            self.submit(r)
+        if max_steps is None:
+            queued = list(self.scheduler.queue)
+            budget = self._drain_budget(queued, self._inflight_requests())
+            arrivals = [r.arrival for r in queued] + [0]
+            max_steps = self.t + max(arrivals) + budget + len(queued) + self.pool.max_slots + 8
+        done: Dict[int, object] = {}
+        while self._work_remaining():
+            if self.t > max_steps:
+                raise RuntimeError(f"{type(self).__name__} did not drain in {max_steps} steps")
+            for f in self.step():
+                if getattr(f, "finished", True):
+                    done[f.uid] = f
+        return done
+
+
+class ContinuousEngine(_QueueEngineBase):
+    """Continuous batching over a fixed slot arena: admit as slots free,
+    prefill each request alone at its exact length, decode every slot of
+    the arena, evict on completion.  Greedy."""
+
+    def __init__(
+        self,
+        model: Model,
+        params,
+        *,
+        max_slots: int = 8,
+        max_len: int = 256,
+        glass: Optional[GlassConfig] = None,
+        global_prior=None,
+        glass_mode: str = "compact",  # compact | masked | block_sparse
+        temperature: float = 0.0,
+        top_k: int = 0,
+        rng=None,
+        decode_chunk: int = 8,  # max decode ticks between admission checks
+        device="cuda",
+    ):
+        _check_glass_args(model, glass, global_prior, glass_mode)
+        if temperature > 0.0 or top_k != 0 or rng is not None:
+            raise NotImplementedError(_SAMPLING_TODO)
+        self.device = resolve_device(device)
+        _check_on_device(self.device, params, global_prior)
+        self.model = model
+        self.params = params
+        self.pool = KVPool(model, max_slots, max_len, device=self.device)
+        self.scheduler = Scheduler(max_len)
+        self.glass_slots = (
+            GlassSlotState(model, params, glass, global_prior, glass_mode, max_slots)
+            if glass is not None else None
+        )
+        self.pending = np.zeros((max_slots,), np.int64)  # next token to feed, per slot
+        self.outputs: List[Optional[List[int]]] = [None] * max_slots
+        self.live: List[Optional[Request]] = [None] * max_slots
+        self.admitted_step = [0] * max_slots
+        self.t = 0  # engine step counter == decode ticks
+        self.slot_steps = 0  # decode ticks x active slots
+        self.decode_chunk = max(1, decode_chunk)
+
+    def _horizon(self) -> int:
+        """Largest safe decode run: bounded by the first possible eviction
+        (the least remaining tokens of an active slot) and, when a free slot
+        could take it, the next queued arrival; rounded down to a power of
+        two, as the JAX engine buckets its fused decode."""
+        active = np.nonzero(self.pool.active)[0]
+        h = min(self.live[int(s)].max_new - len(self.outputs[int(s)]) for s in active)
+        if self.pool.n_free and len(self.scheduler):
+            na = self.scheduler.next_arrival()
+            if na is not None:
+                h = min(h, na - self.t)
+        h = min(h, self.decode_chunk)
+        p = 1
+        while p * 2 <= h:
+            p *= 2
+        return p
+
+    def _decode_kwargs(self) -> dict:
+        if self.glass_slots is None:
+            return {}
+        arena, mode = self.glass_slots.arena, self.glass_slots.mode
+        if mode == "masked":
+            return {"ffn_masks": arena["mask"]}
+        if mode == "compact":
+            return {"compact_layers": arena}
+        return {"ffn_block_idx": arena["idx"], "ffn_block_scale": arena["scale"],
+                "ffn_block_size": self.glass_slots.gcfg.block_size}
+
+    def step(self) -> List[FinishedRequest]:
+        """Admit arrived requests into free slots, then decode the largest
+        provably safe run of ticks for every slot.  Returns the requests
+        finished in this step."""
+        finished: List[FinishedRequest] = []
+        reqs = self.scheduler.pop_admissible(self.t, self.pool.n_free)
+        if reqs:
+            self._admit(reqs, finished)
+        if not self.pool.active.any():
+            na = self.scheduler.next_arrival()  # idle: fast-forward to the next arrival
+            self.t = max(self.t + 1, na if na is not None else self.t + 1)
+            return finished
+        H = self._horizon()
+        kw = self._decode_kwargs()
+        lengths = torch.as_tensor(self.pool.lengths, dtype=torch.int64, device=self.device)
+        toks = torch.as_tensor(self.pending, device=self.device)
+        seq = []
+        for _ in range(H):
+            lg, _ = self.model.decode_step(self.params, toks[:, None], self.pool.cache, lengths,
+                                           **kw)
+            toks = torch.argmax(lg[:, -1].float(), dim=-1)
+            lengths = lengths + 1
+            seq.append(toks)
+        seq = torch.stack(seq).cpu().numpy()  # (H, max_slots)
+        self.slot_steps += H * self.n_active
+        for s in np.nonzero(self.pool.active)[0]:
+            s = int(s)
+            self.pool.lengths[s] += H
+            self.outputs[s].extend(int(x) for x in seq[:, s])
+            self.pending[s] = seq[-1, s]
+            if len(self.outputs[s]) >= self.live[s].max_new:
+                self._finish(s, finished)
+        self.t += H
+        return finished
+
+    def _drain_budget(self, queued: List[Request], live: List[Request]) -> int:
+        return sum(r.max_new for r in queued) + sum(r.max_new for r in live)
+
+    def _admit(self, reqs: List[Request], finished: List[FinishedRequest]) -> None:
+        slots, stats_list = [], []
+        for r in reqs:
+            slot = self.pool.alloc()
+            toks = torch.as_tensor(np.asarray(r.prompt), dtype=torch.int64, device=self.device)
+            logits, cache, stats = self.model.prefill(self.params, {"tokens": toks[None]},
+                                                      len(r.prompt))
+            first = int(torch.argmax(logits[0, -1].float()))
+            self.pool.write_prefill(slot, cache, len(r.prompt))
+            self.pending[slot] = first
+            self.outputs[slot] = [first]
+            self.live[slot] = r
+            self.admitted_step[slot] = self.t
+            slots.append(slot)
+            stats_list.append(stats)
+        if self.glass_slots is not None:
+            self.glass_slots.admit(slots, stats_list)
+        for slot in slots:  # max_new == 1 completes without a decode tick
+            if len(self.outputs[slot]) >= self.live[slot].max_new:
+                self._finish(slot, finished)
+
+    def _finish(self, slot: int, finished: List[FinishedRequest]) -> None:
+        r = self.live[slot]
+        finished.append(FinishedRequest(
+            uid=r.uid, prompt=np.asarray(r.prompt, np.int32),
+            tokens=np.asarray(self.outputs[slot], np.int32), arrival=r.arrival,
+            admitted_step=self.admitted_step[slot], finished_step=self.t,
+        ))
+        self.pool.free(slot)
+        if self.glass_slots is not None:
+            self.glass_slots.clear(slot)
+        self.live[slot] = None
+        self.outputs[slot] = None
+        self.pending[slot] = 0
+
+
+class PagedEngine(_QueueEngineBase):
     """Continuous batching over a paged KV block table (see the module
     docstring).  Submit with :meth:`add_request`, consume
     :class:`RequestOutput` deltas from :meth:`step`, cancel with
@@ -132,13 +453,12 @@ class PagedEngine:
         verify_mode: str = "auto",
         device="cuda",
     ):
-        if glass is not None and global_prior is None:
-            raise ValueError("GLASS needs the offline prior (global_prior)")
-        if model.cfg.family != "dense":
+        if glass_mode == "compact":
             raise NotImplementedError(
-                f"family={model.cfg.family!r}: the port serves the dense family only "
-                "(ROADMAP Queue 1 item 8)"
+                "PagedEngine(glass_mode='compact') is ROADMAP Queue 1 item 6 (Engine and "
+                "ContinuousEngine serve compact mode)"
             )
+        _check_glass_args(model, glass, global_prior, glass_mode)
         if attn_mode not in ("gather", "paged_pallas"):
             raise ValueError(f"unknown attn_mode {attn_mode!r}")
         if verify_mode not in ("auto", "sequential", "parallel"):
@@ -164,12 +484,9 @@ class PagedEngine:
             raise NotImplementedError("prefix_cache=True is ROADMAP Queue 1 item 5")
         if (temperature > 0.0 or top_k != 0 or rng is not None
                 or (sampling is not None and not sampling.is_greedy)):
-            raise NotImplementedError("sampled decoding is ROADMAP Queue 1 item 2; the port is greedy")
+            raise NotImplementedError(_SAMPLING_TODO)
         self.device = resolve_device(device)
-        if any(t.device != self.device for t in _leaves(params)):
-            raise ValueError(f"params must live on the engine's device {self.device}")
-        if global_prior is not None and global_prior.device != self.device:
-            raise ValueError(f"global_prior must live on the engine's device {self.device}")
+        _check_on_device(self.device, params, global_prior)
         self.model = model
         self.params = params
         self.default_sampling = sampling if sampling is not None else SamplingParams.make_greedy()
@@ -183,7 +500,8 @@ class PagedEngine:
         self.scheduler = Scheduler(max_len)
         self.glass = glass
         self.glass_slots = (
-            GlassSlotState(glass, global_prior, glass_mode, max_slots) if glass is not None else None
+            GlassSlotState(model, params, glass, global_prior, glass_mode, max_slots)
+            if glass is not None else None
         )
         self._mode = self.glass_slots.mode if self.glass_slots is not None else None
         self.lc = Lifecycle()
@@ -220,10 +538,12 @@ class PagedEngine:
             arrival=self.t if arrival is None else arrival,
             priority=priority, deadline=deadline, sampling=sampling, glass=glass,
         )
-        self._submit(req)
+        self.submit(req)
         return uid
 
-    def _submit(self, req: Request) -> None:
+    def submit(self, req: Request) -> None:
+        """Validate and enqueue a :class:`Request` (the JAX engine's legacy
+        frontend; :meth:`add_request` builds the request)."""
         need = self.pool.blocks_needed(self._rows_needed(req))
         if need > self.pool.num_blocks - 1:
             raise ValueError(
@@ -287,26 +607,12 @@ class PagedEngine:
         e.finish_reason = "aborted"
         return self._output(e, finished=True, reason="aborted")
 
-    def run(self, requests=(), max_steps: Optional[int] = None) -> Dict[int, RequestOutput]:
-        """Submit ``requests`` (:class:`Request` objects) and serve until the
-        queue and the slots drain; returns {uid: final RequestOutput}."""
-        for r in requests:
-            self._submit(r)
-        if max_steps is None:
-            queued = list(self.scheduler.queue)
-            live = [e.req for e in self.lc.entries.values()]
-            chunks = self.chunk_tokens
-            budget = sum(r.max_new + -(-len(r.prompt) // chunks) for r in queued + live)
-            arrivals = [r.arrival for r in queued] + [0]
-            max_steps = self.t + max(arrivals) + budget + len(queued) + self.pool.max_slots + 8
-        done: Dict[int, RequestOutput] = {}
-        while len(self.scheduler) or self.pool.active.any():
-            if self.t > max_steps:
-                raise RuntimeError(f"PagedEngine did not drain in {max_steps} steps")
-            for f in self.step():
-                if f.finished:
-                    done[f.uid] = f
-        return done
+    def _drain_budget(self, queued: List[Request], live: List[Request]) -> int:
+        chunks = self.chunk_tokens
+        return sum(r.max_new + -(-len(r.prompt) // chunks) for r in queued + live)
+
+    def _inflight_requests(self) -> List[Request]:
+        return [e.req for e in self.lc.entries.values()]
 
     def step(self) -> List[RequestOutput]:
         """One engine tick: admissions, at most one bounded prefill chunk,

@@ -1,12 +1,17 @@
-"""Paged KV block pool for the dense family.
+"""KV-cache pools for the dense family: the slot arena and the paged pool.
 
-A request's KV rows live at logical position ``t`` in block
-``table[t // block_size]``, offset ``t % block_size``; block 0 is the
-trash block that inactive rows of the fixed decode batch point at.  The
-pool is host-side bookkeeping (block tables, the free lists) plus the
-device arena {"k","v": (L, num_blocks, bs, K, hd)}, which the model writes
-in place.  Of ``repro/serve/kv_pool.py``, swap is ROADMAP Queue 1 item 1,
-the prefix cache item 5 and the recurrent-state rows item 8.
+``KVPool`` owns one contiguous cache {"k","v": (L, max_slots, max_len, K,
+hd)} from ``model.init_cache``; a request holds one slot row for its
+whole life (``ContinuousEngine``).
+
+``BlockPool`` is the paged pool of ``PagedEngine``.  A request's KV rows
+live at logical position ``t`` in block ``table[t // block_size]``, offset
+``t % block_size``; block 0 is the trash block that inactive rows of the
+fixed decode batch point at.  The pool is host-side bookkeeping (block
+tables, the free lists) plus the device arena {"k","v": (L, num_blocks,
+bs, K, hd)}, which the model writes in place.  Of
+``repro/serve/kv_pool.py``, swap is ROADMAP Queue 1 item 1, the prefix
+cache item 5 and the recurrent-state rows item 8.
 """
 from __future__ import annotations
 
@@ -16,6 +21,72 @@ import numpy as np
 import torch
 
 from ..models.common import ModelConfig
+
+
+def slot_axes(model, max_len: int) -> Dict[str, int]:
+    """{leaf: slot axis} of the model's cache, found by comparing its
+    shapes for 1 and 2 slots (on the meta device: nothing is allocated)."""
+    c1 = model.init_cache(1, max_len, device="meta")
+    c2 = model.init_cache(2, max_len, device="meta")
+
+    def ax(a: torch.Tensor, b: torch.Tensor) -> int:
+        for i, (x, y) in enumerate(zip(a.shape, b.shape)):
+            if x != y:
+                return i
+        raise ValueError(f"no slot axis in cache leaf {tuple(a.shape)}")
+
+    return {k: ax(c1[k], c2[k]) for k in c1}
+
+
+def write_slot_leaf(dst: torch.Tensor, src: torch.Tensor, axis: int, slot: int) -> torch.Tensor:
+    """Write ``src`` (slot-axis size 1, other axes <= dst's) at ``slot``,
+    from offset 0 on every other axis; in place."""
+    idx = [slice(0, n) for n in src.shape]
+    idx[axis] = slice(slot, slot + 1)
+    dst[tuple(idx)] = src.to(dst.dtype)
+    return dst
+
+
+def clear_slot_leaf(dst: torch.Tensor, axis: int, slot: int) -> torch.Tensor:
+    """Zero the row of ``dst`` at ``slot`` along ``axis``; in place."""
+    dst.select(axis, slot).zero_()
+    return dst
+
+
+class KVPool:
+    """Fixed ``max_slots`` x ``max_len`` cache arena with per-slot lengths."""
+
+    def __init__(self, model, max_slots: int, max_len: int, device="cuda"):
+        self.max_slots = max_slots
+        self.max_len = max_len
+        self.cache = model.init_cache(max_slots, max_len, device=device)
+        self.axes = slot_axes(model, max_len)
+        self.lengths = np.zeros((max_slots,), np.int32)
+        self.active = np.zeros((max_slots,), bool)
+        self._free: List[int] = list(range(max_slots))[::-1]  # pop() -> slot 0 first
+
+    @property
+    def n_free(self) -> int:
+        return len(self._free)
+
+    def alloc(self) -> Optional[int]:
+        return self._free.pop() if self._free else None
+
+    def write_prefill(self, slot: int, req_cache, length: int) -> None:
+        """Insert a single-request prefill cache (one slot) into ``slot``."""
+        for k, dst in self.cache.items():
+            write_slot_leaf(dst, req_cache[k], self.axes[k], slot)
+        self.lengths[slot] = length
+        self.active[slot] = True
+
+    def free(self, slot: int) -> None:
+        """Evict: zero the slot's rows (hygiene; the per-slot length masks
+        are what keep stale rows out) and return the slot."""
+        for k, dst in self.cache.items():
+            clear_slot_leaf(dst, self.axes[k], slot)
+        self.lengths[slot] = 0
+        self.active[slot] = False
+        self._free.append(slot)
 
 
 def pow2_bucket(n: int, cap: int) -> int:

@@ -1,4 +1,4 @@
-"""Request queue and FIFO admission for the paged engine.
+"""Request queue and FIFO admission for the queue-driven engines.
 
 Host-side and tiny: it tracks arrival times (in engine ticks), validates
 feasibility against the KV capacity at submit, and hands out arrived
@@ -37,6 +37,18 @@ class Request:
     deadline: Optional[int] = None  # absolute engine step (DEADLINE policy only)
     sampling: Optional[SamplingParams] = None  # None = engine default
     glass: Optional[GlassParams] = None  # None = engine GlassConfig
+
+
+@dataclass
+class FinishedRequest:
+    """A finished request of ``ContinuousEngine`` (the whole stream at once)."""
+
+    uid: int
+    prompt: np.ndarray
+    tokens: np.ndarray  # (max_new,) generated ids
+    arrival: int
+    admitted_step: int
+    finished_step: int
 
 
 @dataclass

@@ -176,7 +176,8 @@ def test_ops_send_cpu_tensors_to_the_plain_versions():
     ridx, rsc = idx[None].repeat(4, 1), sc[None].repeat(4, 1)
     assert torch.equal(ops.glass_ffn_rowwise(x, wu, wd, ridx, wg, block_scale=rsc, block_size=64),
                        glass_ffn_rowwise_ref(x, wu, wd, ridx, wg, block_scale=rsc, block_size=64))
-    assert ops.launch_counts() == {"paged_attention": 0, "glass_ffn": 0, "glass_ffn_rowwise": 0}
+    assert ops.launch_counts() == {"paged_attention": 0, "glass_ffn": 0, "glass_ffn_rowwise": 0,
+                                   "flash_attention": 0, "local_stats": 0}
     with pytest.raises(ValueError, match="CUDA tensors"):
         ops.glass_ffn(x.to("meta"), wu, wd, idx, wg, block_size=64)
 
@@ -205,4 +206,5 @@ def test_cuda_kernels_match_plain_versions():
         ops.glass_ffn_rowwise(x, wu, wd, idx, wg, block_scale=sc, act="gelu", block_size=64),
         glass_ffn_rowwise_ref(x, wu, wd, idx, wg, block_scale=sc, act="gelu", block_size=64),
         atol=TOL, rtol=TOL)
-    assert ops.launch_counts() == {"paged_attention": 2, "glass_ffn": 1, "glass_ffn_rowwise": 1}
+    assert ops.launch_counts() == {"paged_attention": 2, "glass_ffn": 1, "glass_ffn_rowwise": 1,
+                                   "flash_attention": 0, "local_stats": 0}
