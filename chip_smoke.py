@@ -619,7 +619,6 @@ def engine_phase(cfg, model, params, prior):
     _, t_pre, n = _counted(lambda: model.prefill(params, {"tokens": toks}, 512 + max_new))
     expect(n, "Model.prefill", 1)
     report["prefill_tok_s"] = batch.size / t_pre
-    results = {}
     for name, kw in (("compact", compact), ("block_sparse", block)):
         eng = Engine(model, params, **kw)
         first, t1, n1 = _counted(lambda: eng.generate(batch, 1))
@@ -631,7 +630,6 @@ def engine_phase(cfg, model, params, prior):
         check(res.tokens.shape == (4, max_new) and in_vocab, f"Engine {name}: tokens {res.tokens}")
         check(np.array_equal(first.tokens[:, 0], res.tokens[:, 0]),
               f"Engine {name}: the first token depends on max_new")
-        results[name] = res.tokens
         report[f"engine_{name}"] = dict(
             wall_s=t, launches=n, generate_max_new_1_s=t1,
             decode_tok_s=batch.shape[0] * (max_new - 1) / (t - t1))
