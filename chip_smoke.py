@@ -11,9 +11,12 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
   kernels  every kernel against its plain version at the Llama-3-8B serving
            shapes and at small shapes (window, softcap, ungated FFN, every
            activation, zero scales, K == H, Sq < Skv), in f32 and bf16; the
-           bitwise T-wide and nb-bucket checks of paged attention and the
-           bitwise repeat check of local stats; kernel, plain-version and
-           one-library-call times
+           bitwise T-wide and nb-bucket checks of paged attention, the
+           bitwise repeat checks of flash attention (bf16) and local stats,
+           and flash attention's bitwise batch invariance (each row of a
+           B 4 call equals a B 1 call on that row); kernel, plain-version
+           and one-library-call times (the GLASS FFN's: one compact FFN,
+           three cuBLAS GEMMs, per distinct block list)
   engine   Llama-3-8B at full width (random bf16 weights from the seed)
            through the full-sequence prefill (flash-attention and
            local-stats kernels): Engine.generate on 4 prompts of 512 tokens
@@ -220,7 +223,30 @@ def _ffn_bound(x, block_idx, block_scale, bs, rowwise):
     return _bound(nbytes, flops, x.dtype)
 
 
+def _compact_ffn_ms(timer, cfg, x, wu, wd, wg, idx, sc, bs):
+    """The yardstick for the GLASS FFN: ``ffn_forward`` over compact
+    weights (the list's units gathered beforehand, three cuBLAS GEMMs),
+    once for the rows of a shared list, or once per distinct list of the
+    live rows with one row each (the rowwise kernel's rows)."""
+    from repro_torch.models.ffn import compact_ffn_params, ffn_forward
+
+    dense = {"w_up": wu, "w_gate": wg, "w_down": wd}
+    lists = idx[None] if idx.ndim == 1 else idx
+    live = [r for r in range(lists.shape[0]) if bool((sc.reshape(lists.shape)[r] != 0).any())]
+    calls = []
+    for r in live:
+        units = (lists[r].long()[:, None] * bs + torch.arange(bs, device=x.device)).reshape(-1)
+        calls.append((compact_ffn_params(dense, units), x if idx.ndim == 1 else x[r : r + 1]))
+
+    def run():
+        for p, xr in calls:
+            ffn_forward(p, xr, cfg)
+
+    return timer.ms(run)
+
+
 def kernels_phase(timer):
+    from repro_torch.configs import get_config
     from repro_torch.kernels.glass_ffn import glass_ffn_cuda, glass_ffn_rowwise_cuda
     from repro_torch.kernels.paged_attention import paged_attention_cuda
     from repro_torch.kernels.ref import glass_ffn_ref, glass_ffn_rowwise_ref, paged_attention_ref
@@ -326,6 +352,7 @@ def kernels_phase(timer):
     # -- GLASS FFN at the serving shapes: d 4096, m 14336, block 128, 56 blocks
     # kept at density 0.5; the shared list serves 2 rows, the rowwise kernel
     # 4 distinct lists plus 2 inactive rows (block 0, scale 0)
+    ffn_cfg = get_config("llama3-8b")  # silu, gated
     for dtype in (torch.float32, torch.bfloat16):
         for rowwise, B in ((False, 2), (True, 6)):
             x, wu, wd, idx, wg, sc = ffn_case(dtype, B, 4096, 14336, 128, 56, True, rowwise, False)
@@ -346,7 +373,7 @@ def kernels_phase(timer):
                 row["plain_ms"] = timer.ms(lambda: ref_fn(x, wu, wd, idx, wg, block_scale=sc),
                                            iters=3)
                 row["bound_ms"], row["bound_by"] = _ffn_bound(x, idx, sc, 128, rowwise)
-                row["library_ms"] = None  # no single PyTorch call computes it
+                row["library_ms"] = _compact_ffn_ms(timer, ffn_cfg, x, wu, wd, wg, idx, sc, 128)
                 summary[name] = dict(max_abs_err=err, **{k: row[k] for k in
                                                          ("ms", "plain_ms", "bound_ms", "bound_by",
                                                           "library_ms")})
@@ -385,6 +412,23 @@ def _flash_bound(q, k, window, dtype):
     return _bound(nbytes, 4 * B * H * pairs * hd, dtype)
 
 
+def _device_ms(fn, iters=20) -> float:
+    """Device time of one call of ``fn`` (every kernel it launches), from
+    torch.profiler over ``iters`` calls after a warm-up."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA)
+    return total / iters / 1e3
+
+
 def prefill_kernel_checks(timer, gen, dev, summary, report):
     """Flash attention and local stats against their plain versions."""
     from repro_torch.kernels.flash_attention import flash_attention_cuda
@@ -415,14 +459,33 @@ def prefill_kernel_checks(timer, gen, dev, summary, report):
                 row = dict(kernel="flash_attention", dtype=str(dtype), shape=label, B=B, H=H, K=K,
                            Sq=Sq, Skv=Skv, hd=hd, window=window, softcap=softcap,
                            max_abs_err=err, err_over_limit=over)
+                if dtype is torch.bfloat16:  # bitwise: deterministic and batch-invariant
+                    again = flash_attention_cuda(q, k, v, window=window, softcap=softcap)
+                    row["repeat_bitwise"] = bool(torch.equal(again, got))
+                    check(row["repeat_bitwise"], f"flash_attention {label} B={B} Sq={Sq} hd={hd}: "
+                          "two calls differ bitwise")
+                    if B > 1:
+                        row["batch_invariant_bitwise"] = all(
+                            torch.equal(flash_attention_cuda(q[i : i + 1], k[i : i + 1],
+                                                             v[i : i + 1], window=window,
+                                                             softcap=softcap), got[i : i + 1])
+                            for i in range(B))
+                        check(row["batch_invariant_bitwise"],
+                              f"flash_attention {label} B={B} Sq={Sq} hd={hd}: a batch row "
+                              "differs bitwise from a B 1 call on it")
                 if label == "serving" and dtype is torch.bfloat16:
-                    row["ms"] = timer.ms(lambda: flash_attention_cuda(q, k, v))
+                    kernel = lambda: flash_attention_cuda(q, k, v)
+                    row["ms"] = timer.ms(kernel)
                     row["plain_ms"] = timer.ms(lambda: flash_attention_ref(q, k, v), iters=3)
                     row["bound_ms"], row["bound_by"] = _flash_bound(q, k, None, dtype)
                     qc, kc, vc = (t.contiguous() for t in (q, k, v))
-                    row["library_ms"] = timer.ms(
-                        lambda: torch.nn.functional.scaled_dot_product_attention(
-                            qc, kc, vc, is_causal=True, enable_gqa=True))
+                    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
+                        qc, kc, vc, is_causal=True, enable_gqa=True)
+                    row["library_ms"] = timer.ms(sdpa)
+                    # the same two calls' device time alone: where "ms" exceeds it,
+                    # the host's enqueue of back-to-back calls bounds the loop
+                    row["device_ms"] = _device_ms(kernel)
+                    row["library_device_ms"] = _device_ms(sdpa)
                     if (B, Sq) == (4, 512):  # Engine.generate's prefill
                         summary["flash_attention"] = dict(max_abs_err=err, **{
                             k_: row[k_] for k_ in ("ms", "plain_ms", "bound_ms", "bound_by",
@@ -511,9 +574,8 @@ def _serve(model, params, prior, prompts, max_new, glass, device="cuda", *, max_
         kind = "prefill" if dp and not dd else "decode" if dd and not dp else "mixed"
         times[kind][0] += dt
         times[kind][1] += dp + dd
-        for uid, lg in eng.last_logits.items():
-            if dd and uid not in first_logits:
-                first_logits[uid] = lg.clone()
+        for uid, lg in eng.first_logits.items():
+            first_logits[uid] = lg.clone()
         check(eng.t < 10_000, "engine did not drain")
     wall = time.perf_counter() - t_all
     return eng, done, first_logits, times, wall
@@ -534,7 +596,7 @@ def _device_profile(run):
         wall = time.perf_counter() - t0
     groups = {"paged_attention": ("paged_attention_kernel",),
               "glass_ffn_hidden": ("hidden_kernel",), "glass_ffn_down": ("down_kernel",),
-              "flash_attention": ("flash_attention_kernel",),
+              "flash_attention": ("flash_attention_kernel", "flash_attention_mma_kernel"),
               "local_stats": ("row_norm_kernel", "col_partial_kernel", "col_final_kernel")}
     by_group, kernels, calls = {}, [], 0
     for evt in prof.key_averages():

@@ -2,10 +2,13 @@
 
 The kernel (``csrc/flash_attention.cu``) replaces the TPU kernel
 ``repro/kernels/flash_attention.py:flash_attention``, with grouped-query
-heads taken as they are (k and v carry K <= H heads) and any lengths.  The
-plain version, :func:`flash_attention_ref` (``kernels/ref.py``), computes
-the same function; ``kernels/ops.py`` sends CPU tensors to it and CUDA
-tensors here.
+heads taken as they are (k and v carry K <= H heads) and any lengths.  One
+C entry dispatches on dtype: bfloat16 runs on the tensor cores (mma.sync,
+cp.async), float32 on the CUDA cores in f32; each is the kernel for its
+dtype, and neither falls back to the other.  The plain version,
+:func:`flash_attention_ref` (``kernels/ref.py``), computes the same
+function; ``kernels/ops.py`` sends CPU tensors to it and CUDA tensors
+here.
 """
 from __future__ import annotations
 
@@ -66,11 +69,16 @@ def flash_attention_cuda(
     scale = scale if scale is not None else hd**-0.5
     out = torch.empty(B, Sq, H, hd, dtype=q.dtype, device=q.device).transpose(1, 2)
     strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
+    ptrs = [t.data_ptr() for t in (q, k, v, out)]
+    if q.dtype == torch.bfloat16 and (any(p % 16 for p in ptrs) or any(s % 8 for s in strides)):
+        # the tensor-core kernel copies 16-byte chunks
+        raise ValueError("bfloat16 flash_attention_cuda needs 16-byte aligned q/k/v and strides "
+                         "that are multiples of 8 elements")
     lib = build.load("flash_attention", _SIGNATURES)
     err = lib.flash_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *strides, B, K, H // K, Sq,
-        Skv, hd, int(causal), window, float(softcap) if softcap is not None else 0.0,
-        float(scale), _DTYPE_CODES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream,
+        *ptrs, *strides, B, K, H // K, Sq, Skv, hd, int(causal), window,
+        float(softcap) if softcap is not None else 0.0, float(scale), _DTYPE_CODES[q.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream,
     )
     build.check(err, "flash_attention")
     flash_attention_cuda.launches += 1

@@ -20,9 +20,11 @@ is built at the final chunk), FIFO admission with each request's full KV
 need reserved at admission (``alloc_mode="full"``), and greedy decode of
 the fixed ``max_slots`` batch through the block table; ``attn_mode=
 "paged_pallas"`` runs the paged-attention kernel, ``"gather"`` the dense
-gather + softmax.  Decode runs one tick per :meth:`PagedEngine.step` (the
-JAX engine fuses up to ``decode_chunk`` ticks into one program; the token
-streams are the same).
+gather + softmax.  Each :meth:`PagedEngine.step` decodes the JAX engine's
+horizon (``_horizon``: 1 while a prefill chunk is pending, else up to
+``decode_chunk`` ticks, bounded by the first possible finish and the next
+admissible arrival) as a host loop of single-tick device calls, so steps,
+``admitted_step`` and ``finished_step`` count as the JAX engine's do.
 
 GLASS modes (``glass=None`` serves dense): ``"compact"`` gathers the
 selected units into narrow FFN weights (not in ``PagedEngine`` yet);
@@ -232,8 +234,20 @@ class _QueueEngineBase:
     the drain loop.  Subclasses provide ``step()`` and ``_drain_budget()``
     (a safe bound on the ticks that drain the current workload)."""
 
+    def __init__(self, decode_chunk: int):
+        self.decode_chunk = max(1, decode_chunk)  # max decode ticks between admission checks
+
     def submit(self, req: Request) -> None:
         self.scheduler.submit(req)
+
+    def _pow2_horizon(self, h: int) -> int:
+        """``h`` clamped to ``decode_chunk`` and rounded down to a power of
+        two, as the JAX engines bucket their fused decode."""
+        h = min(h, self.decode_chunk)
+        p = 1
+        while p * 2 <= h:
+            p *= 2
+        return p
 
     @property
     def n_active(self) -> int:
@@ -307,7 +321,7 @@ class ContinuousEngine(_QueueEngineBase):
         self.admitted_step = [0] * max_slots
         self.t = 0  # engine step counter == decode ticks
         self.slot_steps = 0  # decode ticks x active slots
-        self.decode_chunk = max(1, decode_chunk)
+        super().__init__(decode_chunk)
 
     def _horizon(self) -> int:
         """Largest safe decode run: bounded by the first possible eviction
@@ -320,11 +334,7 @@ class ContinuousEngine(_QueueEngineBase):
             na = self.scheduler.next_arrival()
             if na is not None:
                 h = min(h, na - self.t)
-        h = min(h, self.decode_chunk)
-        p = 1
-        while p * 2 <= h:
-            p *= 2
-        return p
+        return self._pow2_horizon(h)
 
     def _decode_kwargs(self) -> dict:
         if self.glass_slots is None:
@@ -420,10 +430,9 @@ class PagedEngine(_QueueEngineBase):
     The constructor keeps the JAX engine's signature, plus ``device`` (the
     device the params live on), with the slice's path as its defaults:
     ``glass_mode="block_sparse"`` and ``alloc_mode="full"``.  ``decode_chunk``
-    and ``verify_mode`` stay in the signature only so that a call written
-    for the JAX engine runs unchanged; they have no effect here (one tick per
-    step gives the same token stream as a fused horizon; ``verify_mode``
-    matters only with ``spec_k > 0``, which raises).
+    bounds the decode ticks of one step, as in the JAX engine.  ``verify_mode``
+    stays in the signature only so that a call written for the JAX engine
+    runs unchanged (it matters only with ``spec_k > 0``, which raises).
     """
 
     def __init__(
@@ -438,7 +447,7 @@ class PagedEngine(_QueueEngineBase):
         chunk_tokens: int = 32,
         glass: Optional[GlassConfig] = None,
         global_prior=None,
-        glass_mode: str = "block_sparse",  # block_sparse | masked (compact: not ported)
+        glass_mode: Optional[str] = None,  # block_sparse (default) | masked (compact: not ported)
         policy: AdmissionPolicy = AdmissionPolicy.FIFO,
         alloc_mode: str = "full",  # full (incremental: not ported)
         preemption=None,
@@ -458,6 +467,14 @@ class PagedEngine(_QueueEngineBase):
                 "PagedEngine(glass_mode='compact') is ROADMAP Queue 1 item 6 (Engine and "
                 "ContinuousEngine serve compact mode)"
             )
+        if glass_mode is None:  # the JAX default (compact) waits for ROADMAP Queue 1 item 6
+            if glass is not None and glass.selection != "block":
+                raise NotImplementedError(
+                    "PagedEngine's default glass_mode is 'block_sparse' until compact mode is "
+                    "ported (ROADMAP Queue 1 item 6), and it needs GlassConfig(selection='block'); "
+                    "pass glass_mode='masked' for another selection"
+                )
+            glass_mode = "block_sparse"
         _check_glass_args(model, glass, global_prior, glass_mode)
         if attn_mode not in ("gather", "paged_pallas"):
             raise ValueError(f"unknown attn_mode {attn_mode!r}")
@@ -494,6 +511,7 @@ class PagedEngine(_QueueEngineBase):
         self._used_uids: set = set()
         self._policies: Dict[int, Tuple[SamplingParams, GlassParams]] = {}
         self.chunk_tokens = chunk_tokens
+        super().__init__(decode_chunk)
         self.attn_mode = attn_mode
         self.pool = BlockPool(model.cfg, max_slots, max_len, block_size, num_blocks,
                               device=self.device)
@@ -509,8 +527,9 @@ class PagedEngine(_QueueEngineBase):
         self.slot_steps = 0  # decode ticks x decoding slots
         self.prefill_tokens = 0  # prompt tokens prefilled
         self.grouped_rows = 0  # decode row-ticks served by the shared-list kernel
-        # {uid: f32 logits row} of the requests decoded in the latest tick
-        self.last_logits: Dict[int, torch.Tensor] = {}
+        # {uid: f32 logits row of its first decode tick} for the requests
+        # whose first decode tick ran in the latest step
+        self.first_logits: Dict[int, torch.Tensor] = {}
 
     # -- public API ---------------------------------------------------------
 
@@ -616,14 +635,16 @@ class PagedEngine(_QueueEngineBase):
 
     def step(self) -> List[RequestOutput]:
         """One engine tick: admissions, at most one bounded prefill chunk,
-        then one decode tick over every running request.  Returns the
-        tick's outputs: one ``finished=True`` entry per request that
+        then the horizon's decode ticks over every running request.  Returns
+        the tick's outputs: one ``finished=True`` entry per request that
         completed and one delta per live request that grew."""
         out: List[RequestOutput] = []
+        self.first_logits = {}
         self._admit_tick()
         prefilled = self._prefill_tick(out)
         self._admit_tick()  # a finished max_new == 1 request frees capacity
-        if not self._decode_tick(out):
+        prefill_pending = prefilled or bool(self.lc.in_state(ReqState.PREFILLING))
+        if not self._decode_tick(out, prefill_pending):
             if prefilled:
                 self.t += 1
             else:
@@ -675,6 +696,22 @@ class PagedEngine(_QueueEngineBase):
             self._finish(e, out, "eos" if tok == e.sp.eos_token_id else "stop")
         elif len(e.outputs) >= e.req.max_new:
             self._finish(e, out, "length")
+
+    def _horizon(self, prefill_pending: bool) -> int:
+        """Decode ticks for this step, as the JAX engine fuses them: 1 while
+        a prefill chunk is pending (chunks interleave with decode), else the
+        largest power of two up to the least remaining budget of the running
+        requests, the next arrival that could be admitted (when a slot is
+        free), and ``decode_chunk``."""
+        if prefill_pending:
+            return 1
+        h = min(e.req.max_new - len(e.outputs) for e in self.lc.in_state(ReqState.RUNNING))
+        if self.pool.n_free_slots and len(self.scheduler):
+            na = min((r.arrival for r in self.scheduler.queue
+                      if self.pool.fits(self._rows_needed(r))), default=None)
+            if na is not None:
+                h = min(h, max(1, na - self.t))
+        return self._pow2_horizon(h)
 
     def _admit_tick(self) -> None:
         """WAITING -> PREFILLING in FIFO order while a slot and the
@@ -755,10 +792,11 @@ class PagedEngine(_QueueEngineBase):
         perm = [s for g in multi for s in g] + rest
         return tuple(len(g) for g in multi), np.asarray(perm, np.int64)
 
-    def _scan_inputs(self, run: List[LiveRequest]):
-        """Fixed-width (``max_slots``) batch arrays for one decode tick:
+    def _scan_inputs(self, run: List[LiveRequest], H: int):
+        """Fixed-width (``max_slots``) batch arrays for H decode ticks:
         per-slot lengths and tokens, and a gather-width-bucketed block table
-        (non-participants point at trash block 0 with length 0)."""
+        covering every participant's rows plus H new ones (non-participants
+        point at trash block 0 with length 0)."""
         B = self.pool.max_slots
         decoding = np.zeros((B,), bool)
         lengths = np.zeros((B,), np.int32)
@@ -767,18 +805,22 @@ class PagedEngine(_QueueEngineBase):
             decoding[e.slot] = True
             lengths[e.slot] = self.pool.lengths[e.slot]
             toks[e.slot] = e.pending
-        need = int(max(lengths[e.slot] + 1 for e in run))
+        need = int(max(lengths[e.slot] + H for e in run))
         nb = pow2_bucket(-(-need // self.pool.block_size), self.pool.nb_max)
         btab = np.where(decoding[:, None], self.pool.block_table[:, :nb], 0).astype(np.int32)
         return lengths, toks, btab
 
-    def _decode_tick(self, out: List[RequestOutput]) -> bool:
-        """One greedy decode tick over every RUNNING request."""
+    def _decode_tick(self, out: List[RequestOutput], prefill_pending: bool) -> bool:
+        """The horizon's greedy decode ticks over every RUNNING request, one
+        device tick at a time with the batch fixed for the horizon; a request
+        that emits a stop token is cut there and finished, with the step's
+        starting ``t`` as its ``finished_step``, as in the JAX engine."""
         run = self.lc.in_state(ReqState.RUNNING)
         if not run:
             return False
         dev = self.device
-        lengths, toks, btab = self._scan_inputs(run)
+        H = self._horizon(prefill_pending)
+        lengths, toks, btab = self._scan_inputs(run, H)
         kw = dict(block_table=torch.as_tensor(btab, device=dev), attn_mode=self.attn_mode)
         groups, perm = self._ffn_grouping(run)
         if self._mode == "masked":
@@ -789,21 +831,28 @@ class PagedEngine(_QueueEngineBase):
                       ffn_block_size=self.glass.block_size)
             if groups:
                 kw.update(ffn_groups=groups, ffn_row_perm=torch.as_tensor(perm, device=dev))
-        logits, _ = self.model.decode_step(
-            self.params, torch.as_tensor(toks, device=dev)[:, None], self.pool.cache,
-            torch.as_tensor(lengths, device=dev), **kw,
-        )
-        lg = logits[:, -1].float()
-        nxt = torch.argmax(lg, dim=-1).cpu().numpy()
-        self.last_logits = {e.uid: lg[e.slot] for e in run}
-        self.slot_steps += len(run)
-        self.grouped_rows += sum(groups)
+        toks_d, lengths_d = torch.as_tensor(toks, device=dev), torch.as_tensor(lengths, device=dev)
+        seq = []
+        for i in range(H):
+            logits, _ = self.model.decode_step(self.params, toks_d[:, None], self.pool.cache,
+                                               lengths_d, **kw)
+            lg = logits[:, -1].float()
+            toks_d = torch.argmax(lg, dim=-1)
+            lengths_d = lengths_d + 1
+            seq.append(toks_d)
+            if i == 0:  # a request with only its prefill token decodes for the first time
+                self.first_logits = {e.uid: lg[e.slot] for e in run if len(e.outputs) == 1}
+        seq = torch.stack(seq).cpu().numpy()  # (H, max_slots)
+        self.slot_steps += H * len(run)
+        self.grouped_rows += H * sum(groups)
         for e in run:
-            self.pool.lengths[e.slot] += 1
-            e.outputs.append(int(nxt[e.slot]))
-            e.pending = e.outputs[-1]
+            self.pool.lengths[e.slot] += H
+            new = [int(x) for x in seq[:, e.slot]]
+            hit = next((j for j, tok in enumerate(new) if tok in e.sp.stop_set), None)
+            e.outputs.extend(new if hit is None else new[: hit + 1])
+            e.pending = new[-1]
             self._maybe_finish(e, out)
-        self.t += 1
+        self.t += H
         return True
 
 

@@ -3,8 +3,10 @@
 Both engines serve the same workload on the same weights (numpy bridge)
 with ``alloc_mode="full"``; greedy token streams must be EQUAL, dense and
 with GLASS block-sparse decode, including two requests that share a prompt
-and so batch through the shared-list kernel.  The tiny float32 config is
-the JAX suites' (``tests/test_paged_serving.py``).
+and so batch through the shared-list kernel; under staggered arrivals the
+step accounting (``admitted_step``, ``finished_step``, ``t``,
+``slot_steps``) must be equal too, for every ``decode_chunk``.  The tiny
+float32 config is the JAX suites' (``tests/test_paged_serving.py``).
 """
 import dataclasses
 import os
@@ -21,6 +23,7 @@ from repro.core import GlassConfig as JaxGlassConfig
 from repro.models import ModelConfig as JaxModelConfig
 from repro.models import build_model as jax_build_model
 from repro.serve.engine import PagedEngine as JaxPagedEngine
+from repro.serve.sampling import SamplingParams as JaxSamplingParams
 from repro_torch.core import GlassConfig, GlassParams
 from repro_torch.models import ModelConfig, build_model
 from repro_torch.params import from_reference
@@ -103,6 +106,115 @@ def test_greedy_streams_equal_jax_engine(models, jax_streams, glass_mode, attn_m
     assert not eng.lc.entries and not len(eng.scheduler)
 
 
+# staggered arrivals through 2 slots: requests wait for slots, prefill in
+# 4-token chunks between decode ticks, and the horizon is cut by budgets
+# and by the next arrival
+HORIZON_ENGINE = dict(max_slots=2, max_len=32, block_size=4, chunk_tokens=4, alloc_mode="full")
+ARRIVALS = (0, 0, 2, 3, 10)
+
+
+def _staggered_workload():
+    rng = np.random.RandomState(1)
+    return [(rng.randint(3, 101, size=n).astype(np.int32), m)
+            for n, m in zip((9, 6, 11, 5, 7), (7, 9, 5, 8, 6))]
+
+
+def _serve_staggered(eng, sampling):
+    for uid, ((prompt, max_new), arrival) in enumerate(zip(_staggered_workload(), ARRIVALS)):
+        eng.add_request(prompt, max_new, uid=uid, arrival=arrival, sampling=sampling)
+    return eng.run(), eng.t, eng.slot_steps
+
+
+@pytest.fixture(scope="module")
+def jax_staggered(models):
+    """{(decode_chunk, with_eos): (final outputs, t, slot_steps)} of the JAX
+    engine; the eos leg stops on a token of request 3's stream."""
+    jmodel, jparams, _, _, prior = models
+    runs = {}
+
+    def get(decode_chunk, with_eos):
+        key = (decode_chunk, with_eos)
+        if key not in runs:
+            sampling = None
+            if with_eos:
+                sampling = JaxSamplingParams.make_greedy(eos_token_id=_staggered_eos(get))
+            eng = JaxPagedEngine(
+                jmodel, jparams, **HORIZON_ENGINE, decode_chunk=decode_chunk,
+                glass=JaxGlassConfig(density=0.5, selection="block", block_size=32),
+                global_prior=jnp.asarray(prior), glass_mode="block_sparse")
+            runs[key] = _serve_staggered(eng, sampling)
+        return runs[key]
+
+    return get
+
+
+def _staggered_eos(jax_get):
+    return int(jax_get(1, False)[0][3].tokens[2])
+
+
+class _TickSpy:
+    """A Model whose ``decode_step`` also hands each tick's logits to
+    ``on_tick``; every other attribute is the model's."""
+
+    def __init__(self, model, on_tick):
+        self._model, self._on_tick = model, on_tick
+
+    def __getattr__(self, name):
+        return getattr(self._model, name)
+
+    def decode_step(self, *args, **kw):
+        logits, cache = self._model.decode_step(*args, **kw)
+        self._on_tick(logits)
+        return logits, cache
+
+
+@pytest.mark.parametrize("with_eos", [False, True])
+@pytest.mark.parametrize("decode_chunk", [1, 8])
+def test_step_accounting_equals_jax_engine(models, jax_staggered, decode_chunk, with_eos):
+    """The port decodes the JAX engine's horizon each step, so every
+    request is admitted and finished at the same step and the engines end
+    at the same ``t`` and ``slot_steps``, with equal streams.  Stepped by
+    hand: ``first_logits`` holds each decoded request once, with the
+    logits of tick 0 of the step that first decodes it."""
+    _, _, model, params, prior = models
+    jdone, jt, jslot_steps = jax_staggered(decode_chunk, with_eos)
+    sampling = None
+    if with_eos:
+        sampling = SamplingParams.make_greedy(eos_token_id=_staggered_eos(jax_staggered))
+    eng = PagedEngine(model, params, **HORIZON_ENGINE, decode_chunk=decode_chunk,
+                      glass=GlassConfig(density=0.5, selection="block", block_size=32),
+                      global_prior=torch.from_numpy(prior), device="cpu")
+    ticks = []  # (f32 last-position logits, {uid: slot}) of each decode tick of a step
+    eng.model = _TickSpy(model, lambda lg: ticks.append(
+        (lg[:, -1].float().clone(), {e.uid: e.slot for e in eng.lc.entries.values()})))
+    for uid, ((prompt, max_new), arrival) in enumerate(zip(_staggered_workload(), ARRIVALS)):
+        eng.add_request(prompt, max_new, uid=uid, arrival=arrival, sampling=sampling)
+    done, first = {}, {}
+    while eng._work_remaining():
+        assert eng.t < 200, "PagedEngine did not drain"
+        ticks.clear()
+        done.update((f.uid, f) for f in eng.step() if f.finished)
+        for uid, row in eng.first_logits.items():
+            assert uid not in first, f"uid={uid} in first_logits twice"
+            lg, slots = ticks[0]
+            torch.testing.assert_close(row, lg[slots[uid]], rtol=0, atol=0)
+            first[uid] = row
+    t, slot_steps = eng.t, eng.slot_steps
+    assert sorted(first) == sorted(u for u, d in done.items() if len(d.tokens) > 1)
+    for uid, row in first.items():
+        assert int(torch.argmax(row)) == int(done[uid].tokens[1]), f"uid={uid}"
+    assert sorted(done) == sorted(jdone) == list(range(len(ARRIVALS)))
+    for uid in done:
+        got, want = done[uid], jdone[uid]
+        np.testing.assert_array_equal(got.tokens, want.tokens, err_msg=f"uid={uid}")
+        assert (got.admitted_step, got.finished_step, got.finish_reason) == (
+            want.admitted_step, want.finished_step, want.finish_reason), f"uid={uid}"
+    assert (t, slot_steps) == (jt, jslot_steps)
+    if with_eos:
+        assert any(d.finish_reason == "eos" for d in done.values())
+    assert eng.pool.allocator.n_live == 0 and not eng.lc.entries
+
+
 def test_abort_and_stop_release_everything(models):
     _, _, model, params, prior = models
     glass = dict(glass=GlassConfig(density=0.5, selection="block", block_size=32),
@@ -165,14 +277,31 @@ def test_request_options_outside_the_slice_raise(models, request_kw, match):
 
 def test_defaults_are_the_slice_path(models):
     """With no mode given, the engine serves the slice's path: full
-    allocation and block-sparse GLASS decode."""
+    allocation and block-sparse GLASS decode.  A neuron-selection GLASS
+    config (the JAX engine's compact default) under that default raises
+    NotImplementedError naming the item that ports compact mode."""
     _, _, model, params, prior = models
     eng = PagedEngine(model, params, max_slots=3, max_len=32, block_size=8,
                       glass=GlassConfig(density=0.5, selection="block", block_size=32),
                       global_prior=torch.from_numpy(prior), device="cpu")
     assert eng.glass_slots.mode == "block_sparse"
-    with pytest.raises(ValueError, match="glass_mode='masked'"):
+    with pytest.raises(NotImplementedError, match="item 6"):
         PagedEngine(model, params, glass=GlassConfig(density=0.5),
+                    global_prior=torch.from_numpy(prior), device="cpu")
+    with pytest.raises(ValueError, match="glass_mode='masked'"):  # block_sparse asked for
+        PagedEngine(model, params, glass=GlassConfig(density=0.5),
+                    global_prior=torch.from_numpy(prior), glass_mode="block_sparse",
+                    device="cpu")
+
+
+def test_serve_example_call_shape_names_item_6(models):
+    """The JAX serve example's engine call (examples/serve_glass.py) raises
+    NotImplementedError naming ROADMAP Queue 1 item 6 until compact mode
+    is ported."""
+    _, _, model, params, prior = models
+    with pytest.raises(NotImplementedError, match="item 6"):
+        PagedEngine(model, params, max_slots=3, max_len=48, block_size=8, chunk_tokens=8,
+                    glass=GlassConfig(density=0.5, draft_ratio=0.5),
                     global_prior=torch.from_numpy(prior), device="cpu")
 
 

@@ -305,7 +305,9 @@ def test_cuda_prefill_kernels_match_plain_versions():
     """On the card: flash attention (GQA, any length, window, softcap,
     strided model-layout views) within 2e-5 and local stats within 1e-5 of
     their plain versions in f32, local stats bitwise equal across two
-    calls, and one launch counted per call."""
+    calls, and one launch counted per call.  The bf16 (tensor-core) flash
+    kernel is deterministic (two calls bitwise equal) and batch-invariant
+    (each batch row bitwise equal to a B 1 call on that row)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     ops.reset_launch_counts()
@@ -322,4 +324,13 @@ def test_cuda_prefill_kernels_match_plain_versions():
     got = ops.local_stats(h, mask)
     torch.testing.assert_close(got, local_stats_ref(h, mask), atol=STATS_TOL, rtol=STATS_TOL)
     assert torch.equal(got, ops.local_stats(h, mask))
-    assert ops.launch_counts()["flash_attention"] == 2 and ops.launch_counts()["local_stats"] == 2
+    q = torch.randn(3, 100, 8, 128, generator=g, device="cuda").bfloat16().transpose(1, 2)
+    k, v = (torch.randn(3, 100, 2, 128, generator=g, device="cuda").bfloat16().transpose(1, 2)
+            for _ in range(2))
+    out = ops.flash_attention(q, k, v)
+    assert torch.isfinite(out.float()).all()
+    assert torch.equal(out, ops.flash_attention(q, k, v))
+    for i in range(3):
+        assert torch.equal(out[i : i + 1], ops.flash_attention(q[i : i + 1], k[i : i + 1],
+                                                               v[i : i + 1]))
+    assert ops.launch_counts()["flash_attention"] == 7 and ops.launch_counts()["local_stats"] == 2
