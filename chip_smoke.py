@@ -10,11 +10,15 @@ Phases, one JSON line each; any failure ends the run with a non-zero exit:
   env      card name and power limit, torch/CUDA versions, kernel build time
   kernels  every kernel against its plain version at the Llama-3-8B serving
            shapes and at small shapes (window, softcap, ungated FFN, every
-           activation, zero scales, K == H, Sq < Skv), in f32 and bf16; the
-           bitwise T-wide and nb-bucket checks of paged attention, the
-           bitwise repeat checks of flash attention (bf16) and local stats,
-           and flash attention's bitwise batch invariance (each row of a
-           B 4 call equals a B 1 call on that row); kernel, plain-version
+           activation, zero scales, K == H, Sq < Skv), in f32 and bf16;
+           paged attention also at and across its split of the KV walk
+           (decode lengths around one and two splits, windows below and
+           above a split, T-wide chunks that cross one) and at head_dim
+           256 and 192, with the bitwise T-wide and nb-bucket checks on
+           every case; the bitwise repeat checks of flash attention (bf16)
+           and local stats, and flash attention's bitwise batch
+           invariance (each row of a B 4 call equals a B 1 call on that
+           row); kernel, plain-version
            and one-library-call times (the GLASS FFN's: one compact FFN,
            three cuBLAS GEMMs, per distinct block list)
   engine   Llama-3-8B at full width (random bf16 weights from the seed)
@@ -245,73 +249,120 @@ def _compact_ffn_ms(timer, cfg, x, wu, wd, wg, idx, sc, bs):
     return timer.ms(run)
 
 
-def kernels_phase(timer):
-    from repro_torch.configs import get_config
-    from repro_torch.kernels.glass_ffn import glass_ffn_cuda, glass_ffn_rowwise_cuda
+def _paged_bitwise(got, args, window, softcap):
+    """The bitwise contracts of paged attention on one case: a T-wide call
+    equals T one-query calls, and a table four times as wide and one of at
+    least 64 entries (trash entries past every frontier) change no bit.
+    Returns {check: bool}."""
     from repro_torch.kernels.paged_attention import paged_attention_cuda
-    from repro_torch.kernels.ref import glass_ffn_ref, glass_ffn_rowwise_ref, paged_attention_ref
 
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(SEED)
-    summary = {name: {} for name in KERNELS}
-    report = {"phase": "kernels", "checks": []}
+    q, ck, cv, tab, clen = args
+    out = {}
+    if q.shape[1] > 1:
+        singles = torch.cat([
+            paged_attention_cuda(q[:, t : t + 1].contiguous(), ck, cv, tab, clen + t, window,
+                                 softcap=softcap)
+            for t in range(q.shape[1])
+        ], dim=1)
+        out["t_wide_bitwise"] = bool(torch.equal(singles, got))
+    for nb in sorted({4 * tab.shape[1], max(64, tab.shape[1])}):
+        wide = torch.zeros(tab.shape[0], nb, dtype=torch.int32, device=tab.device)
+        wide[:, : tab.shape[1]] = tab
+        out[f"bucket_{nb}_bitwise"] = bool(torch.equal(
+            paged_attention_cuda(q, ck, cv, wide, clen, window, softcap=softcap), got))
+    return out
 
-    # -- paged attention: small shapes (window, softcap, trash rows, T > 1)
-    for dtype in (torch.float32, torch.bfloat16):
-        for window, softcap in ((2**30, None), (6, None), (2**30, 30.0), (3, 12.0)):
-            args = _pool_case(gen, dev, dtype, B=3, T=5, K=2, G=3, hd=64, bs=8, num_blocks=12,
-                              lens=[0, 9, 17], nb=4)
-            got = paged_attention_cuda(*args, window, softcap=softcap)
-            ref = paged_attention_ref(*args, window, softcap=softcap)
-            err, over = _paged_err(got, ref, args, window, softcap)
-            report["checks"].append(dict(kernel="paged_attention", dtype=str(dtype), shape="small",
-                                         window=window, softcap=softcap, max_abs_err=err,
-                                         err_over_limit=over))
-            check(bool(torch.isfinite(got).all()) and over <= 1.0,
-                  f"paged_attention small {dtype} window={window} softcap={softcap}: err {err}, "
-                  f"{over} of the limit")
 
-    # -- paged attention at the serving shapes: decode (B=8, T=1) and one
-    # prefill chunk (B=1, T=128), Llama-3-8B heads, block 16
-    shapes = {
+def paged_attention_checks(timer, gen, dev, summary, report):
+    """Paged attention against its plain version: small shapes (window,
+    softcap, trash rows, T > 1, a G that does not divide 16, a block size
+    that does not divide the split, a head_dim padded to the tensor-core
+    tile and one the tensor cores do not take, head_dim 256 and 192), the
+    serving shapes, and
+    cases that straddle the kernel's split of the KV walk; every case in
+    f32 and bf16 with the T-wide and nb-bucket bitwise checks.  Times the
+    serving shapes (both launches)."""
+    from repro_torch.kernels.paged_attention import paged_attention_cuda, split_size
+    from repro_torch.kernels.ref import paged_attention_ref
+
+    S = split_size()
+    serve_heads = dict(K=8, G=4, hd=128, bs=16, num_blocks=289)
+    cases = [  # (label, shape kwargs, window, softcap)
+        *[("small", dict(B=3, T=5, K=2, G=3, hd=64, bs=8, num_blocks=12, lens=[0, 9, 17], nb=4),
+           w, c) for w, c in ((2**30, None), (6, None), (2**30, 30.0), (3, 12.0))],
+        ("odd_shape", dict(B=3, T=3, K=1, G=5, hd=80, bs=12, num_blocks=60, lens=[0, 125, 250],
+                           nb=24), 40, None),
+        ("odd_shape", dict(B=2, T=4, K=2, G=2, hd=36, bs=8, num_blocks=80, lens=[130, 7],
+                           nb=20), 2**30, 20.0),
+        # head_dim 256, and 192 padded to it: the tensor-core path that reads
+        # Q from shared memory at every k-step; queries cross a split
+        ("head_dim_256", dict(B=3, T=5, K=2, G=3, hd=256, bs=8, num_blocks=80,
+                              lens=[0, S - 2, 2 * S + 3], nb=36), 2**30, None),
+        ("head_dim_256", dict(B=3, T=5, K=2, G=3, hd=192, bs=8, num_blocks=80,
+                              lens=[0, S - 2, 2 * S + 3], nb=36), 100, 20.0),
+        # decode rows at split - 2 .. 2 * split + 1, and one inactive row
+        ("split_edges", dict(B=8, T=1, lens=[S - 2, S - 1, S, S + 1, 2 * S - 1, 2 * S, 2 * S + 1,
+                                             0], nb=20, **serve_heads), 2**30, None),
+        # windows below a split and above it, each crossing a split boundary
+        ("window_split", dict(B=8, T=1, lens=[S - 1, S, S + 30, 3 * S + 7, 60, 10, 0, 2 * S],
+                              nb=28, **serve_heads), 50, None),
+        ("window_split", dict(B=4, T=1, lens=[S + 30, 3 * S + 7, 2 * S + 99, 250], nb=28,
+                              **serve_heads), 200, 30.0),
+        # T-wide chunks whose queries cross a split boundary
+        ("chunk_split", dict(B=2, T=64, lens=[S - 28, 2 * S - 56], nb=20, **serve_heads), 2**30,
+         None),
+        ("chunk_split", dict(B=2, T=64, lens=[S - 28, 2 * S - 56], nb=20, **serve_heads), 50,
+         30.0),
+    ]
+    # the serving shapes: decode (B=8, T=1) and one prefill chunk (B=1, T=128)
+    serving = {
         "decode": dict(B=8, T=1, lens=[543, 511, 383, 255, 199, 127, 0, 0], nb=36),
         "prefill": dict(B=1, T=128, lens=[256], nb=32),
     }
+    cases += [(label, dict(sh, **serve_heads), 2**30, None) for label, sh in serving.items()]
     for dtype in (torch.float32, torch.bfloat16):
-        for label, sh in shapes.items():
-            args = _pool_case(gen, dev, dtype, B=sh["B"], T=sh["T"], K=8, G=4, hd=128, bs=16,
-                              num_blocks=289, lens=sh["lens"], nb=sh["nb"])
-            got = paged_attention_cuda(*args, 2**30)
-            ref = paged_attention_ref(*args, 2**30)
-            err, over = _paged_err(got, ref, args, 2**30)
+        for label, sh, window, softcap in cases:
+            args = _pool_case(gen, dev, dtype, **sh)
+            got = paged_attention_cuda(*args, window, softcap=softcap)
+            ref = paged_attention_ref(*args, window, softcap=softcap)
+            err, over = _paged_err(got, ref, args, window, softcap)
+            what = f"paged_attention {label} {dtype} {sh} window={window} softcap={softcap}"
             check(bool(torch.isfinite(got).all()) and over <= 1.0,
-                  f"paged_attention {label} {dtype}: err {err}, {over} of the limit")
-            row = dict(kernel="paged_attention", dtype=str(dtype), shape=label, max_abs_err=err,
-                       err_over_limit=over)
-            if dtype is torch.bfloat16:
+                  f"{what}: err {err}, {over} of the limit")
+            row = dict(kernel="paged_attention", dtype=str(dtype), shape=label,
+                       **{k: sh[k] for k in ("B", "T", "K", "G", "hd", "bs", "lens")},
+                       window=window, softcap=softcap, max_abs_err=err, err_over_limit=over)
+            bitwise = _paged_bitwise(got, args, window, softcap)
+            row.update(bitwise)
+            check(all(bitwise.values()), f"{what}: a bitwise contract fails: {bitwise}")
+            if label in serving and dtype is torch.bfloat16:
                 q, ck, cv, tab, clen = args
-                row["ms"] = timer.ms(lambda: paged_attention_cuda(*args, 2**30), cold=True)
+                kernel = lambda: paged_attention_cuda(*args, 2**30)
+                row["ms"] = timer.ms(kernel, cold=True)
+                row["device_ms"] = _device_ms(kernel)
                 row["plain_ms"] = timer.ms(lambda: paged_attention_ref(*args, 2**30), iters=5)
                 row["bound_ms"], row["bound_by"] = _paged_bound(q, tab, clen, 16, dtype)
-                row["library_ms"] = _sdpa_ms(timer, *args)
+                row["library_ms"], row["library_device_ms"] = _sdpa_ms(timer, *args)
                 if label == "decode":
                     summary["paged_attention"] = dict(
                         max_abs_err=err, **{k: row[k] for k in
                                             ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
-                if label == "prefill":  # bitwise: T-wide call == T one-query calls
-                    singles = torch.cat([
-                        paged_attention_cuda(q[:, t : t + 1].contiguous(), ck, cv, tab, clen + t, 2**30)
-                        for t in range(q.shape[1])
-                    ], dim=1)
-                    row["t_wide_bitwise"] = bool(torch.equal(singles, got))
-                    check(row["t_wide_bitwise"], "paged_attention T-wide != T one-query calls")
-                else:  # bitwise: a wider nb bucket of trash entries changes nothing
-                    wide = torch.zeros(tab.shape[0], 64, dtype=torch.int32, device=dev)
-                    wide[:, : tab.shape[1]] = tab
-                    row["bucket_bitwise"] = bool(torch.equal(
-                        paged_attention_cuda(q, ck, cv, wide, clen, 2**30), got))
-                    check(row["bucket_bitwise"], "paged_attention depends on the nb bucket")
             report["checks"].append(row)
+
+
+def kernels_phase(timer):
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.glass_ffn import glass_ffn_cuda, glass_ffn_rowwise_cuda
+    from repro_torch.kernels.ref import glass_ffn_ref, glass_ffn_rowwise_ref
+
+    dev = torch.device("cuda")
+    # one generator per kernel family, so that cases added to one family
+    # leave the other families' inputs (and times) as they were
+    seeded = lambda k: torch.Generator(device=dev).manual_seed(SEED + k)
+    summary = {name: {} for name in KERNELS}
+    report = {"phase": "kernels", "checks": []}
+    paged_attention_checks(timer, seeded(0), dev, summary, report)
+    gen = seeded(1)
 
     # -- GLASS FFN: small shapes (every activation, ungated, zero scales, > 8 rows)
     def ffn_case(dtype, B, d, m, bs, nbk, gated, rowwise, zero_scales):
@@ -379,7 +430,7 @@ def kernels_phase(timer):
                                                           "library_ms")})
             report["checks"].append(row)
         del x, wu, wd, wg
-    prefill_kernel_checks(timer, gen, dev, summary, report)
+    prefill_kernel_checks(timer, seeded(2), dev, summary, report)
     emit(report)
     return summary
 
@@ -527,7 +578,8 @@ def prefill_kernel_checks(timer, gen, dev, summary, report):
 
 def _sdpa_ms(timer, q, ck, cv, tab, clen):
     """The yardstick for paged attention: one scaled_dot_product_attention
-    call over the rows' KV, gathered beforehand, with the same mask."""
+    call over the rows' KV, gathered beforehand, with the same mask.
+    Returns (ms with the L2 flushed, profiler device ms)."""
     B, T, K, G, hd = q.shape
     bs, nb = ck.shape[1], tab.shape[1]
     kg = ck[tab.long()].reshape(B, nb * bs, K, hd)
@@ -538,7 +590,7 @@ def _sdpa_ms(timer, q, ck, cv, tab, clen):
     qpos = clen.long()[:, None] + torch.arange(T, device=q.device)
     mask = (qpos[:, :, None] >= torch.arange(nb * bs, device=q.device))[:, None]
     fn = lambda: torch.nn.functional.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)
-    return timer.ms(fn, cold=True)
+    return timer.ms(fn, cold=True), _device_ms(fn)
 
 
 # -- serve ----------------------------------------------------------------------
@@ -594,7 +646,7 @@ def _device_profile(run):
         run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    groups = {"paged_attention": ("paged_attention_kernel",),
+    groups = {"paged_attention": ("paged_attention_",),
               "glass_ffn_hidden": ("hidden_kernel",), "glass_ffn_down": ("down_kernel",),
               "flash_attention": ("flash_attention_kernel", "flash_attention_mma_kernel"),
               "local_stats": ("row_norm_kernel", "col_partial_kernel", "col_final_kernel")}

@@ -1,11 +1,11 @@
 """Builds the CUDA sources under ``csrc/`` with nvcc and loads them with ctypes.
 
 Each ``csrc/<name>.cu`` exports a plain C entry point and compiles on its
-own into ``csrc/_build/lib<name>-<hash>.so`` (the hash covers the source
-and the flags, so an edited source never loads a stale library).  The
-build runs at first use; :func:`build` starts one nvcc per missing source,
-all at once, and waits for them.  The build directory is listed in
-``.gitignore``.
+own into ``csrc/_build/lib<name>-<hash>.so`` (the hash covers the source,
+the shared headers ``csrc/*.cuh`` and the flags, so an edited source never
+loads a stale library).  The build runs at first use; :func:`build` starts
+one nvcc per missing source, all at once, and waits for them.  The build
+directory is listed in ``.gitignore``.
 
 Nothing here runs at import time, and nothing is built on a host without
 nvcc: only a CUDA tensor reaches a kernel wrapper.
@@ -42,8 +42,10 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    """The library's path; its hash covers the source, the shared headers
+    (``csrc/*.cuh``) and the flags."""
+    text = b"".join(p.read_bytes() for p in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))])
+    digest = hashlib.sha1(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

@@ -47,9 +47,9 @@ def paged_attention(
     q, cache_k, cache_v, block_table, cache_len, window: int, *,
     softcap: Optional[float] = None, scale: Optional[float] = None,
 ) -> torch.Tensor:
-    """Fused paged attention: block-table gather + online-softmax attention
-    in one pass; the caller scatters the new k/v rows first.  ``window`` is
-    an int (2**30 for global layers)."""
+    """Fused paged attention: block-table gather + online-softmax attention,
+    with no gathered KV copy; the caller scatters the new k/v rows first.
+    ``window`` is an int (2**30 for global layers)."""
     fn = paged_attention_cuda if on_card(q) else paged_attention_ref
     return fn(q, cache_k, cache_v, block_table, cache_len, window, softcap=softcap, scale=scale)
 

@@ -26,9 +26,10 @@ horizon (``_horizon``: 1 while a prefill chunk is pending, else up to
 admissible arrival) as a host loop of single-tick device calls, so steps,
 ``admitted_step`` and ``finished_step`` count as the JAX engine's do.
 
-GLASS modes (``glass=None`` serves dense): ``"compact"`` gathers the
-selected units into narrow FFN weights (not in ``PagedEngine`` yet);
-``"masked"`` multiplies the unit mask into h; ``"block_sparse"`` (with
+GLASS modes (``glass=None`` serves dense): ``"compact"`` (the default, as
+in the JAX engines) gathers each request's selected units into narrow FFN
+weights, per slot in the queue-driven engines; ``"masked"`` multiplies the
+unit mask into h; ``"block_sparse"`` (with
 ``selection="block"``) feeds the active block lists to the GLASS FFN
 kernels — one shared list through the shared-list kernel, per-slot lists
 through the rowwise kernel, and, in ``PagedEngine``, rows whose lists
@@ -249,6 +250,18 @@ class _QueueEngineBase:
             p *= 2
         return p
 
+    def _decode_kwargs(self) -> dict:
+        """``decode_step``'s GLASS arguments: the per-slot rows of the mode."""
+        if self.glass_slots is None:
+            return {}
+        arena, mode = self.glass_slots.arena, self.glass_slots.mode
+        if mode == "masked":
+            return {"ffn_masks": arena["mask"]}
+        if mode == "compact":  # a cleared slot's zero rows add exactly 0
+            return {"compact_layers": arena}
+        return {"ffn_block_idx": arena["idx"], "ffn_block_scale": arena["scale"],
+                "ffn_block_size": self.glass_slots.gcfg.block_size}
+
     @property
     def n_active(self) -> int:
         return int(self.pool.active.sum())
@@ -336,17 +349,6 @@ class ContinuousEngine(_QueueEngineBase):
                 h = min(h, na - self.t)
         return self._pow2_horizon(h)
 
-    def _decode_kwargs(self) -> dict:
-        if self.glass_slots is None:
-            return {}
-        arena, mode = self.glass_slots.arena, self.glass_slots.mode
-        if mode == "masked":
-            return {"ffn_masks": arena["mask"]}
-        if mode == "compact":
-            return {"compact_layers": arena}
-        return {"ffn_block_idx": arena["idx"], "ffn_block_scale": arena["scale"],
-                "ffn_block_size": self.glass_slots.gcfg.block_size}
-
     def step(self) -> List[FinishedRequest]:
         """Admit arrived requests into free slots, then decode the largest
         provably safe run of ticks for every slot.  Returns the requests
@@ -428,8 +430,10 @@ class PagedEngine(_QueueEngineBase):
     :meth:`abort`; :meth:`run` serves until the queue drains.
 
     The constructor keeps the JAX engine's signature, plus ``device`` (the
-    device the params live on), with the slice's path as its defaults:
-    ``glass_mode="block_sparse"`` and ``alloc_mode="full"``.  ``decode_chunk``
+    device the params live on), and its default ``glass_mode="compact"``:
+    each slot decodes through its own gathered FFN rows (``GlassSlotState``).
+    ``alloc_mode`` defaults to ``"full"``; the JAX default, ``"incremental"``,
+    is ROADMAP Queue 1 item 1.  ``decode_chunk``
     bounds the decode ticks of one step, as in the JAX engine.  ``verify_mode``
     stays in the signature only so that a call written for the JAX engine
     runs unchanged (it matters only with ``spec_k > 0``, which raises).
@@ -447,7 +451,7 @@ class PagedEngine(_QueueEngineBase):
         chunk_tokens: int = 32,
         glass: Optional[GlassConfig] = None,
         global_prior=None,
-        glass_mode: Optional[str] = None,  # block_sparse (default) | masked (compact: not ported)
+        glass_mode: str = "compact",  # compact | masked | block_sparse
         policy: AdmissionPolicy = AdmissionPolicy.FIFO,
         alloc_mode: str = "full",  # full (incremental: not ported)
         preemption=None,
@@ -462,19 +466,6 @@ class PagedEngine(_QueueEngineBase):
         verify_mode: str = "auto",
         device="cuda",
     ):
-        if glass_mode == "compact":
-            raise NotImplementedError(
-                "PagedEngine(glass_mode='compact') is ROADMAP Queue 1 item 6 (Engine and "
-                "ContinuousEngine serve compact mode)"
-            )
-        if glass_mode is None:  # the JAX default (compact) waits for ROADMAP Queue 1 item 6
-            if glass is not None and glass.selection != "block":
-                raise NotImplementedError(
-                    "PagedEngine's default glass_mode is 'block_sparse' until compact mode is "
-                    "ported (ROADMAP Queue 1 item 6), and it needs GlassConfig(selection='block'); "
-                    "pass glass_mode='masked' for another selection"
-                )
-            glass_mode = "block_sparse"
         _check_glass_args(model, glass, global_prior, glass_mode)
         if attn_mode not in ("gather", "paged_pallas"):
             raise ValueError(f"unknown attn_mode {attn_mode!r}")
@@ -821,16 +812,11 @@ class PagedEngine(_QueueEngineBase):
         dev = self.device
         H = self._horizon(prefill_pending)
         lengths, toks, btab = self._scan_inputs(run, H)
-        kw = dict(block_table=torch.as_tensor(btab, device=dev), attn_mode=self.attn_mode)
+        kw = dict(block_table=torch.as_tensor(btab, device=dev), attn_mode=self.attn_mode,
+                  **self._decode_kwargs())
         groups, perm = self._ffn_grouping(run)
-        if self._mode == "masked":
-            kw["ffn_masks"] = self.glass_slots.arena["mask"]
-        elif self._mode == "block_sparse":
-            arena = self.glass_slots.arena
-            kw.update(ffn_block_idx=arena["idx"], ffn_block_scale=arena["scale"],
-                      ffn_block_size=self.glass.block_size)
-            if groups:
-                kw.update(ffn_groups=groups, ffn_row_perm=torch.as_tensor(perm, device=dev))
+        if groups:
+            kw.update(ffn_groups=groups, ffn_row_perm=torch.as_tensor(perm, device=dev))
         toks_d, lengths_d = torch.as_tensor(toks, device=dev), torch.as_tensor(lengths, device=dev)
         seq = []
         for i in range(H):

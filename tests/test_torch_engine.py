@@ -1,9 +1,11 @@
 """The port's PagedEngine against the JAX package's, and its guard rails.
 
 Both engines serve the same workload on the same weights (numpy bridge)
-with ``alloc_mode="full"``; greedy token streams must be EQUAL, dense and
-with GLASS block-sparse decode, including two requests that share a prompt
-and so batch through the shared-list kernel; under staggered arrivals the
+with ``alloc_mode="full"``; greedy token streams must be EQUAL, dense, with
+GLASS compact decode (each slot's gathered FFN rows, held against the JAX
+engine's at admission) and with block-sparse decode, including two
+requests that share a prompt and so batch through the shared-list kernel;
+under staggered arrivals the
 step accounting (``admitted_step``, ``finished_step``, ``t``,
 ``slot_steps``) must be equal too, for every ``decode_chunk``.  The tiny
 float32 config is the JAX suites' (``tests/test_paged_serving.py``).
@@ -33,6 +35,7 @@ BASE = dict(n_layers=2, d_model=48, n_heads=4, n_kv_heads=2, head_dim=12,
             d_ff=96, vocab_size=101, dtype="float32", remat="none")
 JCFG = JaxModelConfig(name="te-dense", family="dense", **BASE)
 ENGINE = dict(max_slots=3, max_len=32, block_size=8, chunk_tokens=5, alloc_mode="full")
+TOL = 1e-5  # fp32, across frameworks
 SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "src")
 
 
@@ -60,10 +63,36 @@ def _serve(eng, work):
     return eng.run()
 
 
+# glass_mode -> GlassConfig kwargs: compact takes neuron selection, as in JAX
+GLASS = {
+    "compact": dict(density=0.5),
+    "block_sparse": dict(density=0.5, selection="block", block_size=32),
+}
+
+
+def _serve_stepped(eng, work):
+    """Serve ``work`` step by step; returns (final outputs, {uid: the
+    request's compact FFN rows, as numpy, read from the engine's slot arena
+    at the end of the step in which it first decodes}).  A request's rows
+    are written when its last prefill chunk runs."""
+    for uid, (prompt, max_new) in enumerate(work):
+        eng.add_request(prompt, max_new, uid=uid)
+    done, rows = {}, {}
+    while eng._work_remaining():
+        assert eng.t < 200, "the engine did not drain"
+        done.update((f.uid, f) for f in eng.step() if getattr(f, "finished", True))
+        arena = eng.glass_slots.arena
+        for e in eng.lc.entries.values():
+            if e.state.value == "running" and e.uid not in rows:
+                rows[e.uid] = {k: np.array(a[:, e.slot]) for k, a in arena.items()}  # a copy
+    return done, rows
+
+
 @pytest.fixture(scope="module")
 def jax_streams(models):
-    """{glass_mode: the JAX engine's final outputs} (gather attention), run
-    once per mode and shared by the port's attention modes."""
+    """{glass_mode: (the JAX engine's final outputs, its compact rows per
+    request or None)} (gather attention), run once per mode and shared by
+    the port's attention modes."""
     jmodel, jparams, _, _, prior = models
     runs = {}
 
@@ -71,29 +100,47 @@ def jax_streams(models):
         if glass_mode not in runs:
             jkw = {}
             if glass_mode:
-                jkw = dict(glass=JaxGlassConfig(density=0.5, selection="block", block_size=32),
+                jkw = dict(glass=JaxGlassConfig(**GLASS[glass_mode]),
                            global_prior=jnp.asarray(prior), glass_mode=glass_mode)
-            runs[glass_mode] = _serve(JaxPagedEngine(jmodel, jparams, **ENGINE, **jkw),
-                                      _workload())
+            eng = JaxPagedEngine(jmodel, jparams, **ENGINE, **jkw)
+            if glass_mode == "compact":
+                runs[glass_mode] = _serve_stepped(eng, _workload())
+            else:
+                runs[glass_mode] = (_serve(eng, _workload()), None)
         return runs[glass_mode]
 
     return get
 
 
 @pytest.mark.parametrize("glass_mode,attn_mode", [
-    (None, "gather"), (None, "paged_pallas"), ("block_sparse", "gather"),
-    ("block_sparse", "paged_pallas"),
+    (None, "gather"), (None, "paged_pallas"), ("compact", "gather"), ("compact", "paged_pallas"),
+    ("block_sparse", "gather"), ("block_sparse", "paged_pallas"),
 ])
 def test_greedy_streams_equal_jax_engine(models, jax_streams, glass_mode, attn_mode):
+    """Equal streams; in compact mode also each request's gathered FFN rows
+    (w_up, w_gate (L, d, k), w_down (L, k, d)) equal the JAX engine's
+    ``compact_params`` rows of the same request within the file's fp32
+    tolerance (the JAX engine exposes no per-request logits)."""
     _, _, model, params, prior = models
     kw = {}
     if glass_mode:
-        kw = dict(glass=GlassConfig(density=0.5, selection="block", block_size=32),
-                  global_prior=torch.from_numpy(prior), glass_mode=glass_mode)
+        kw = dict(glass=GlassConfig(**GLASS[glass_mode]), global_prior=torch.from_numpy(prior),
+                  glass_mode=glass_mode)
     work = _workload()
-    jdone = jax_streams(glass_mode)
+    jdone, jrows = jax_streams(glass_mode)
     eng = PagedEngine(model, params, **ENGINE, **kw, attn_mode=attn_mode, device="cpu")
-    done = _serve(eng, work)
+    if glass_mode == "compact":
+        done, rows = _serve_stepped(eng, work)
+        assert sorted(rows) == sorted(jrows) == list(range(len(work)))
+        for uid, got in rows.items():
+            assert sorted(got) == sorted(jrows[uid]) == ["w_down", "w_gate", "w_up"]
+            for k, a in got.items():
+                np.testing.assert_allclose(a, jrows[uid][k], rtol=TOL, atol=TOL,
+                                           err_msg=f"uid={uid} {k}")
+        for a in eng.glass_slots.arena.values():  # every slot cleared after the drain
+            assert not a.any()
+    else:
+        done = _serve(eng, work)
     assert sorted(done) == sorted(jdone) == list(range(len(work)))
     for uid in done:
         np.testing.assert_array_equal(done[uid].tokens, jdone[uid].tokens, err_msg=f"uid={uid}")
@@ -183,7 +230,8 @@ def test_step_accounting_equals_jax_engine(models, jax_staggered, decode_chunk, 
         sampling = SamplingParams.make_greedy(eos_token_id=_staggered_eos(jax_staggered))
     eng = PagedEngine(model, params, **HORIZON_ENGINE, decode_chunk=decode_chunk,
                       glass=GlassConfig(density=0.5, selection="block", block_size=32),
-                      global_prior=torch.from_numpy(prior), device="cpu")
+                      global_prior=torch.from_numpy(prior), glass_mode="block_sparse",
+                      device="cpu")
     ticks = []  # (f32 last-position logits, {uid: slot}) of each decode tick of a step
     eng.model = _TickSpy(model, lambda lg: ticks.append(
         (lg[:, -1].float().clone(), {e.uid: e.slot for e in eng.lc.entries.values()})))
@@ -250,7 +298,6 @@ def test_abort_and_stop_release_everything(models):
     (dict(spec_k=2), "item 4"),
     (dict(glass=GlassConfig(density=0.5, draft_ratio=0.5)), "item 4"),
     (dict(prefix_cache=True), "item 5"),
-    (dict(glass_mode="compact"), "item 6"),
 ])
 def test_options_outside_the_slice_raise(models, kwargs, match):
     _, _, model, params, prior = models
@@ -276,30 +323,33 @@ def test_request_options_outside_the_slice_raise(models, request_kw, match):
 
 
 def test_defaults_are_the_slice_path(models):
-    """With no mode given, the engine serves the slice's path: full
-    allocation and block-sparse GLASS decode.  A neuron-selection GLASS
-    config (the JAX engine's compact default) under that default raises
-    NotImplementedError naming the item that ports compact mode."""
+    """With no mode given, the engine takes the JAX engine's default,
+    compact GLASS decode, with full allocation; block selection under
+    compact raises ValueError, as in JAX, and is served by asking for
+    block_sparse."""
     _, _, model, params, prior = models
+    tprior = torch.from_numpy(prior)
     eng = PagedEngine(model, params, max_slots=3, max_len=32, block_size=8,
-                      glass=GlassConfig(density=0.5, selection="block", block_size=32),
-                      global_prior=torch.from_numpy(prior), device="cpu")
+                      glass=GlassConfig(density=0.5), global_prior=tprior, device="cpu")
+    assert eng.glass_slots.mode == "compact"
+    block = GlassConfig(density=0.5, selection="block", block_size=32)
+    with pytest.raises(ValueError, match="block ids"):
+        PagedEngine(model, params, glass=block, global_prior=tprior, device="cpu")
+    eng = PagedEngine(model, params, glass=block, global_prior=tprior, glass_mode="block_sparse",
+                      device="cpu")
     assert eng.glass_slots.mode == "block_sparse"
-    with pytest.raises(NotImplementedError, match="item 6"):
-        PagedEngine(model, params, glass=GlassConfig(density=0.5),
-                    global_prior=torch.from_numpy(prior), device="cpu")
-    with pytest.raises(ValueError, match="glass_mode='masked'"):  # block_sparse asked for
-        PagedEngine(model, params, glass=GlassConfig(density=0.5),
-                    global_prior=torch.from_numpy(prior), glass_mode="block_sparse",
-                    device="cpu")
+    with pytest.raises(ValueError, match="glass_mode='masked'"):  # neuron ids to block_sparse
+        PagedEngine(model, params, glass=GlassConfig(density=0.5), global_prior=tprior,
+                    glass_mode="block_sparse", device="cpu")
 
 
-def test_serve_example_call_shape_names_item_6(models):
-    """The JAX serve example's engine call (examples/serve_glass.py) raises
-    NotImplementedError naming ROADMAP Queue 1 item 6 until compact mode
-    is ported."""
+def test_serve_example_call_shape_names_item_4(models):
+    """The JAX serve example's engine call (examples/serve_glass.py) takes
+    the default compact mode with a draft tier (``draft_ratio=0.5``), so it
+    raises NotImplementedError naming ROADMAP Queue 1 item 4 (speculative
+    decode) until that item is ported."""
     _, _, model, params, prior = models
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(NotImplementedError, match="item 4"):
         PagedEngine(model, params, max_slots=3, max_len=48, block_size=8, chunk_tokens=8,
                     glass=GlassConfig(density=0.5, draft_ratio=0.5),
                     global_prior=torch.from_numpy(prior), device="cpu")

@@ -139,7 +139,8 @@ def test_continuous_engine_equals_per_request_engine(models, mode):
 
 
 @pytest.mark.parametrize("mode,attn_mode", [
-    (None, "paged_pallas"), ("masked", "gather"), ("block_sparse", "paged_pallas"),
+    (None, "paged_pallas"), ("compact", "paged_pallas"), ("masked", "gather"),
+    ("block_sparse", "paged_pallas"),
 ])
 def test_paged_engine_equals_per_request_engine(models, mode, attn_mode):
     """Chunked paged prefill (chunks of 3) and interleaved decode give the
@@ -182,9 +183,9 @@ def test_invalid_configurations_raise(models):
     with pytest.raises(ValueError, match="selection='block'"):
         Engine(model, params, glass=GlassConfig(), global_prior=tprior, glass_mode="block_sparse",
                device="cpu")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        PagedEngine(model, params, glass=GlassConfig(), global_prior=tprior, glass_mode="compact",
-                    device="cpu")
+    with pytest.raises(ValueError, match="block ids"):
+        PagedEngine(model, params, glass=GlassConfig(selection="block"), global_prior=tprior,
+                    glass_mode="compact", device="cpu")
     moe = build_model(model.cfg.replace(family="moe", n_experts=4, n_experts_per_tok=2))
     for cls in (Engine, ContinuousEngine):
         with pytest.raises(NotImplementedError, match="item 8"):
